@@ -9,16 +9,23 @@ checkout, holds each against its plain PyTorch version on the GPU at the
 shapes the main path gives it, then drives the main path (full-width
 AttLWB-SPADE with seeded random weights, synthetic body model, 512^2, two
 source views, 16 target frames in chunks of 8) through the entry points a
-user calls and checks its output. Reads no weight file. Every phase prints one
-JSON line; any failed check raises, so the exit code is non-zero. Needs one
-GPU; exits with code 2 when there is none.
+user calls and checks its output. Then, each with the launch counts set to 0
+before it and read after it: the table route (`IPERCORE_CSR_RASTER=0`, one
+chunk), temporal mode (8 frames, a temporal generator on the same weights),
+and the three services `imitate`, `novel_view` and `swap` on a synthetic
+processed directory written to a temporary directory. Reads no weight file.
+Every phase prints one JSON line; any failed check raises, so the exit code
+is non-zero. Needs one GPU; exits with code 2 when there is none.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -38,7 +45,9 @@ REPLACES = {
     "raster_flows_csr": "ipercore_tpu/ops/rasterizer_pallas.py:710",
     "grid_sample_nhwc": "ipercore_tpu/ops/sampling_pallas.py:92",
     "raster_fim": "ipercore_tpu/ops/rasterizer_pallas.py:249",
+    "raster_flows_table": "ipercore_tpu/ops/rasterizer_pallas.py:779",
 }
+TABLE_K = 2048  # faces per 8x128 tile of the table route, the JAX default
 
 
 def emit(phase: str, **fields) -> None:
@@ -160,6 +169,40 @@ def raster_agreement(fim_k, fim_p, val_k, val_p, what: str) -> float:
     return err_all
 
 
+def table_checks(face_verts, k: int) -> None:
+    """The K4 table itself: each tile keeps min(true_count, k) entries in its
+    first slots, in non-decreasing minimum depth, and the true counts add up to
+    the (tile, face) pairs that the valid faces' padded boxes touch, counted
+    face by face."""
+    from ipercore_tpu_torch.ops import rasterizer as rz
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+
+    bins = rc.bin_faces_table(face_verts, SIZE, k, with_stats=True)
+    ids = bins.ids.long()
+    T = ids.shape[0]
+    check(torch.equal(bins.kept, bins.true_counts.clamp(max=k)), f"k={k}: kept != min(true, k)")
+    slot = torch.arange(k, device=ids.device)
+    check(torch.equal(ids >= 0, slot < bins.kept[..., None]), f"k={k}: kept ids are not the first slots")
+    minz = face_verts[..., 2].amin(-1)
+    z = torch.gather(minz, 1, ids.clamp(min=0).reshape(T, -1)).reshape(ids.shape)
+    z = torch.where(ids >= 0, z, torch.full_like(z, float("inf")))
+    check(bool((z[..., 1:] >= z[..., :-1]).all()), f"k={k}: kept ids are not nearest first")
+    _, valid = rz._face_bary_matrices(face_verts)
+    x, y = face_verts[..., 0], face_verts[..., 1]
+    to_px = lambda v: (v + 1.0) * (SIZE * 0.5) - 0.5
+
+    def n_tiles(lo, hi, tile, g):
+        t0 = torch.floor((to_px(lo) - 1) / tile).clamp(0, g - 1)
+        t1 = torch.floor((to_px(hi) + 1) / tile).clamp(0, g - 1)
+        return (t1 - t0 + 1).long()
+
+    pairs = (n_tiles(x.amin(-1), x.amax(-1), rc.TABLE_TILE_W, SIZE // rc.TABLE_TILE_W)
+             * n_tiles(y.amin(-1), y.amax(-1), rc.TABLE_TILE_H, SIZE // rc.TABLE_TILE_H))
+    want = int(torch.where(valid, pairs, torch.zeros_like(pairs)).sum())
+    check(int(bins.true_counts.sum()) == want == bins.stats["total_entries"],
+          f"k={k}: true counts add to {int(bins.true_counts.sum())}, faces touch {want}")
+
+
 def kernel_checks(model, assets, device) -> dict:
     from ipercore_tpu_torch.ops import rasterizer_cuda as rc
     from ipercore_tpu_torch.ops import sampling_cuda as sc
@@ -198,6 +241,39 @@ def kernel_checks(model, assets, device) -> dict:
     results["raster_flows_csr"]["max_abs_err"] = max(err, err_t)
     del flows_p, fim_p, flows_t, fim_t
 
+    # K4: the table route at the same chunk; k = 2048 overflows a few tiles,
+    # k = 256 most of them ----------------------------------------------------
+    fim4, flows4, stats4 = rc.raster_flows_table(tgt_fv, aux, SIZE, k=TABLE_K, with_stats=True)
+    torch.cuda.synchronize()
+    (fim_p, flows_p), plain_ms = once_ms(lambda: rc.raster_flows_table_plain(tgt_fv, aux, SIZE, TABLE_K))
+    err4 = raster_agreement(fim4, fim_p, flows4, flows_p, "raster_flows_table")
+    agree4 = float((fim4 == fim_p).float().mean())
+    check(stats4["n_overflow_tiles"] >= 1,
+          f"raster_flows_table: no tile overflows k={TABLE_K} on the main path's chunk ({stats4})")
+    table_checks(tgt_fv, TABLE_K)
+    del fim_p, flows_p
+    fim_s, flows_s, stats256 = rc.raster_flows_table(tgt_fv, aux, SIZE, k=256, with_stats=True)
+    fim_p, flows_p = rc.raster_flows_table_plain(tgt_fv, aux, SIZE, 256)
+    err256 = raster_agreement(fim_s, fim_p, flows_s, flows_p, "raster_flows_table/k=256")
+    agree256 = float((fim_s == fim_p).float().mean())
+    table_checks(tgt_fv, 256)
+    del fim_p, flows_p, fim_s, flows_s
+    bins = rc.bin_faces_table(tgt_fv, SIZE, TABLE_K)
+    geom, _ = rc.face_geometry(tgt_fv)
+    b_ms, b_by = bound(nbytes(tgt_fv, aux, fim4, flows4), raster_flops(tgt_fv, SIZE, flows4.numel()))
+    results["raster_flows_table"] = {
+        "route": "cuda", "source": "ipercore_tpu_torch/csrc/raster_table.cu",
+        "max_abs_err": max(err4, err256),
+        "kernel_ms": cuda_ms(lambda: rc.launch_raster_flows_table(geom, bins, aux, SIZE, J)),
+        "wrapper_ms": cuda_ms(lambda: rc.raster_flows_table(tgt_fv, aux, SIZE, k=TABLE_K)),
+        "binning_ms": cuda_ms(lambda: rc.bin_faces_table(tgt_fv, SIZE, TABLE_K)),
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"T={T} F={F} S={SIZE} J={J} k={TABLE_K}", "stats": stats4,
+        "fim_agreement": agree4, "max_abs_err_k2048": err4,
+        "k256": {"stats": stats256, "fim_agreement": agree256, "max_abs_err": err256},
+    }
+    del fim4, flows4
+
     # K3: source frames (N = NS) and the UV template (N = 1) ---------------
     uv_fv = torch.cat([assets.f2uvs, torch.ones_like(assets.f2uvs[..., :1])], dim=-1)[None].contiguous()
     worst, agree = 0.0, 1.0
@@ -208,6 +284,16 @@ def kernel_checks(model, assets, device) -> dict:
         agree = min(agree, float((out.fim == ref.fim).float().mean()))
         check(st["total_entries"] == tiles_touched(fv, SIZE),
               f"raster_fim/{name}: the tile lists do not hold every (tile, face) pair")
+    # the JAX K3 keeps 2048 faces per 8x128 tile; the exact-binned raster_fim
+    # equals it while no such tile holds more
+    k3_loads = {}
+    for name, fv in (("source", src_fv), ("uv_template", uv_fv)):
+        st = rc.bin_faces_table(fv, SIZE, TABLE_K, with_stats=True).stats
+        k3_loads[name] = {"max_tile_load_8x128": st["max_tile_load"],
+                          "n_overflow_tiles": st["n_overflow_tiles"]}
+        check(st["max_tile_load"] <= TABLE_K,
+              f"raster_fim/{name}: an 8x128 tile holds {st['max_tile_load']} faces > {TABLE_K}, "
+              "so JAX rasterize_pallas would drop faces that raster_fim keeps")
     out, stats3 = rc.raster_fim(src_fv, SIZE, with_stats=True)
     _, plain_ms = once_ms(lambda: rc.raster_fim_plain(src_fv, SIZE))
     plan3 = rc.prepare_raster(src_fv, SIZE)
@@ -219,6 +305,7 @@ def kernel_checks(model, assets, device) -> dict:
         "binning_ms": cuda_ms(lambda: rc.prepare_raster(src_fv, SIZE)),
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"N={NS} F={F} S={SIZE}", "stats": stats3, "fim_agreement": agree,
+        "jax_8x128_tile_loads": k3_loads,
     }
 
     # K2 ------------------------------------------------------------------
@@ -255,7 +342,7 @@ def kernel_checks(model, assets, device) -> dict:
     results["grid_sample_nhwc"] = {
         "route": "cuda", "source": "ipercore_tpu_torch/csrc/grid_sample.cu",
         "max_abs_err": max(err, e64, ebf), "kernel_ms": k_ms, "wrapper_ms": k_ms,
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "binning_ms": None, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lib), "max_abs_diff_vs_library": elib,
         "shape": f"N={T} H=W={SIZE} C=3 -> {SIZE}x{SIZE}",
     }
@@ -285,11 +372,26 @@ def tiles_touched(face_verts, size: int) -> int:
 
 
 def counters() -> dict:
-    from ipercore_tpu_torch.ops.rasterizer_cuda import raster_fim, raster_flows
+    from ipercore_tpu_torch.ops.rasterizer_cuda import raster_fim, raster_flows, raster_flows_table
     from ipercore_tpu_torch.ops.sampling_cuda import grid_sample_nhwc
 
     return {"raster_flows_csr": raster_flows, "grid_sample_nhwc": grid_sample_nhwc,
-            "raster_fim": raster_fim}
+            "raster_fim": raster_fim, "raster_flows_table": raster_flows_table}
+
+
+def zero_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def close_fraction(a, b, tol: float = 1e-3) -> float:
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return float(((a.float().cpu() - b.float().cpu()).abs() <= tol).float().mean())
 
 
 def device_breakdown(fn) -> dict:
@@ -309,7 +411,8 @@ def device_breakdown(fn) -> dict:
             continue
         by_name.append((us / 1e3, ev.key[:70]))
         name = ev.key.lower()
-        if "raster_tile_kernel" in name or "grid_sample_nhwc_kernel" in name:
+        if any(w in name for w in ("raster_tile_kernel", "raster_table_kernel",
+                                   "grid_sample_nhwc_kernel")):
             kinds["kernels"] += us
         elif any(w in name for w in ("conv", "cudnn", "gemm", "xmma", "cutlass", "winograd",
                                      "implicit", "nchwtonhwc", "nhwctonchw", "dgrad",
@@ -329,7 +432,7 @@ def device_breakdown(fn) -> dict:
     return out
 
 
-def main_path(device) -> dict:
+def main_path(device) -> tuple[dict, dict]:
     from ipercore_tpu_torch.models import flow_composition as fc
     from ipercore_tpu_torch.models import imitator as imit
     from ipercore_tpu_torch.models import smpl as smpl_mod
@@ -347,9 +450,7 @@ def main_path(device) -> dict:
     src_img, src_smpl = source_inputs(device)
     tgt = target_smpls(N_FRAMES, 1)
 
-    counts = counters()
-    for fn in counts.values():
-        fn.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = smpl_mod.template_model(device=device)
@@ -360,7 +461,7 @@ def main_path(device) -> dict:
     frames = imitate_sequence(comp, gen, cache, smpls, chunk=CHUNK, device=device)
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counts.items()}
+    launches = read_counts()
 
     check(frames.shape == (N_FRAMES, SIZE, SIZE, 3), f"frames have shape {frames.shape}")
     check(bool(np.isfinite(frames).all()), "frames are not finite")
@@ -370,6 +471,7 @@ def main_path(device) -> dict:
     check(launches["raster_fim"] >= 2, f"raster_fim launched {launches['raster_fim']} times")
     for k in ("raster_flows_csr", "grid_sample_nhwc"):
         check(launches[k] >= N_FRAMES // CHUNK, f"{k} launched {launches[k]} times")
+    check(launches["raster_flows_table"] == 0, "the CSR route launched the table kernel")
 
     # no entry lost on this run's geometry: each chunk's tile lists hold one
     # entry for every tile that a valid face's padded box touches, counted
@@ -408,7 +510,8 @@ def main_path(device) -> dict:
     chunk_ms = cuda_ms(lambda: imit.synthesize_frames(comp, gen, cache, batch), reps=3, warmup=1)
     breakdown = device_breakdown(lambda: imit.synthesize_frames(comp, gen, cache, batch))
 
-    return {
+    ctx = {"comp": comp, "gen": gen, "cache": cache, "smpls": smpls, "pred_csr": pred_k}
+    return ctx, {
         "model": "AttLWB-SPADE", "params": n_params, "size": SIZE, "ns": NS,
         "frames": N_FRAMES, "chunk": CHUNK, "dtype": "float32", "tf32": False,
         "launches": launches, "binning_stats": stats,
@@ -423,6 +526,219 @@ def main_path(device) -> dict:
         "frame_min": float(frames.min()), "frame_max": float(frames.max()),
         "frame_std": float(frames.std()),
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the table route (IPERCORE_CSR_RASTER=0), one chunk
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def table_route_env():
+    """`IPERCORE_CSR_RASTER=0` inside the block, the previous value after it."""
+    prev = os.environ.get("IPERCORE_CSR_RASTER")
+    os.environ["IPERCORE_CSR_RASTER"] = "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("IPERCORE_CSR_RASTER")
+        else:
+            os.environ["IPERCORE_CSR_RASTER"] = prev
+
+
+def table_route(ctx, device) -> dict:
+    from ipercore_tpu_torch.models import imitator as imit
+    from ipercore_tpu_torch.ops.dispatch import force_plain
+
+    comp, gen, cache = ctx["comp"], ctx["gen"], ctx["cache"]
+    batch = torch.as_tensor(ctx["smpls"][:CHUNK], device=device)
+    with table_route_env():
+        zero_counts()
+        pred_k, _ = imit.synthesize_frames(comp, gen, cache, batch)
+        launches = read_counts()
+        with force_plain():
+            pred_p, _ = imit.synthesize_frames(comp, gen, cache, batch)
+        chunk_ms = cuda_ms(lambda: imit.synthesize_frames(comp, gen, cache, batch), reps=3, warmup=1)
+        breakdown = device_breakdown(lambda: imit.synthesize_frames(comp, gen, cache, batch))
+    check(launches["raster_flows_table"] >= 1, f"table route: launches {launches}")
+    check(launches["raster_flows_csr"] == 0, f"table route launched the CSR kernel: {launches}")
+    close = close_fraction(pred_k, pred_p)
+    check(close >= 0.995, f"table route: kernel and plain runs agree on {close} of values, < 0.995")
+    check(bool(torch.isfinite(pred_k).all()), "table route: frames are not finite")
+    return {"launches": launches, "chunk": CHUNK, "chunk_ms": chunk_ms,
+            "device_ms_per_chunk": breakdown,
+            "device_idle_share": 1 - breakdown["busy"] / chunk_ms,
+            "kernel_vs_plain_close_fraction": close,
+            "close_fraction_vs_csr_route": close_fraction(pred_k, ctx["pred_csr"])}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: temporal mode
+# ---------------------------------------------------------------------------
+
+def temporal_phase(ctx, device) -> dict:
+    from ipercore_tpu_torch.models.networks import build_generator
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+    from ipercore_tpu_torch.ops.dispatch import force_plain
+    from ipercore_tpu_torch.services.run_imitator import imitate_sequence
+    from ipercore_tpu_torch.utils.checkpoint import load_generator_params, seeded_flat_params
+
+    gen = build_generator("AttLWB-SPADE", CFG, temporal=True, device=device)
+    load_generator_params(gen, seeded_flat_params(CFG, seed=0))
+    comp, cache, smpls = ctx["comp"], ctx["cache"], ctx["smpls"][:CHUNK]
+    run = lambda: imitate_sequence(comp, gen, cache, smpls, temporal=True, device=device)
+
+    per_frame_aux = []
+    launch = rc.launch_raster_flows
+    rc.launch_raster_flows = lambda plan, aux, *a: (per_frame_aux.append(aux.dim() == 5),
+                                                    launch(plan, aux, *a))[1]
+    try:
+        zero_counts()
+        frames = run()
+        launches = read_counts()
+    finally:
+        rc.launch_raster_flows = launch
+    check(per_frame_aux == [True] and launches["raster_flows_csr"] == 1,
+          f"temporal: K1 launches {launches}, per-frame aux {per_frame_aux}")
+    check(launches["grid_sample_nhwc"] == 1, f"temporal: launches {launches}")
+    check(frames.shape == (CHUNK, SIZE, SIZE, 3) and bool(np.isfinite(frames).all()),
+          "temporal: frames are not finite or have the wrong shape")
+    check(frames.min() >= -1 - 1e-3 and frames.max() <= 1 + 1e-3, "temporal: frames leave [-1, 1]")
+    check(float(np.abs(frames[0] - frames[-1]).max()) > 1e-3, "temporal: frames do not follow the pose")
+    with force_plain():
+        plain = run()
+    close = close_fraction(frames, plain)
+    check(close >= 0.995, f"temporal: kernel and plain runs agree on {close} of values, < 0.995")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    seconds = time.perf_counter() - t0
+    return {"frames": CHUNK, "launches": launches, "frames_per_s_with_host_copy": CHUNK / seconds,
+            "kernel_vs_plain_close_fraction": close,
+            "frame_min": float(frames.min()), "frame_max": float(frames.max())}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the services on a synthetic processed directory
+# ---------------------------------------------------------------------------
+
+def write_processed(root: str, name: str, n: int, seed: int, masks: bool = False,
+                    background: bool = False) -> None:
+    """A processed input as the preprocessing stage leaves it: frames, SMPLs
+    (and masks, background) from a seed."""
+    from ipercore_tpu_torch.services.meta_info import MetaProcess
+    from ipercore_tpu_torch.services.process_info import ProcessInfo
+    from ipercore_tpu_torch.utils import video as vid
+
+    rng = np.random.RandomState(seed)
+    info = ProcessInfo(MetaProcess(name, root).make_dirs().processed_dir, name=name)
+    os.makedirs(os.path.join(info.processed_dir, "images"))
+    info.meta["valid_img_names"] = [f"frame_{i:08d}.png" for i in range(n)]
+    for f in info.meta["valid_img_names"]:
+        vid.save_image(os.path.join(info.processed_dir, "images", f),
+                       rng.uniform(-1, 1, (SIZE, SIZE, 3)).astype(np.float32))
+    info.set_array("smpls", target_smpls(n, seed))
+    if masks:
+        yy, xx = np.mgrid[:SIZE, :SIZE]
+        ring = ((yy - SIZE / 2) ** 2 + (xx - SIZE / 2) ** 2 > (SIZE / 3) ** 2).astype(np.float32)
+        info.set_array("masks", np.repeat(ring[None], n, axis=0))
+    if background:
+        vid.save_image(os.path.join(info.processed_dir, "background.png"),
+                       rng.uniform(-1, 1, (SIZE, SIZE, 3)).astype(np.float32))
+    info.serialize()
+
+
+def services_phase(device) -> dict:
+    from ipercore_tpu_torch.models import imitator as imit
+    from ipercore_tpu_torch.models.mesh import part_face_mask
+    from ipercore_tpu_torch.services import options
+    from ipercore_tpu_torch.services import run_imitator as ri
+    from ipercore_tpu_torch.services.meta_info import parse_src_input
+    from ipercore_tpu_torch.services.process_info import ProcessInfo
+    from ipercore_tpu_torch.services.run_swapper import swap
+    from ipercore_tpu_torch.services.run_viewer import novel_view
+    from ipercore_tpu_torch.utils import video as vid
+    from ipercore_tpu_torch.utils.smoothing import (
+        _butter_lowpass_sos,
+        lowpass_filtfilt,
+        temporal_smooth_smpls,
+    )
+
+    def to_u8(frames):
+        return np.clip((np.asarray(frames) + 1.0) * 127.5, 0, 255).astype(np.uint8).astype(np.int32)
+
+    def written(root, synthesis):
+        d = os.path.join(root, "primitives", synthesis, "synthesis")
+        names = sorted(f for f in os.listdir(d) if f.startswith("pred_"))
+        return np.stack([vid.read_png(os.path.join(d, f)) for f in names]).astype(np.int32)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        n_ref = 2 * CHUNK  # longer than the low-pass filter's 9-frame padding
+        write_processed(root, "alice", NS, 11, masks=True, background=True)
+        write_processed(root, "bob", 1, 12)
+        write_processed(root, "dance", n_ref, 13)
+        opt = options.setup(None, [])
+        opt.update(image_size=SIZE, num_source=NS, output_dir=root, model_id="smoke",
+                   Generator=CFG, view_frames=CHUNK, src_path="path?=alice,name?=alice",
+                   ref_path="path?=dance,name?=dance")
+        # the in-memory frames each service must have written, through the
+        # library entry points on one runtime
+        model, comp, gen = ri.build_runtime(opt, device)
+        alice = parse_src_input(opt.src_path)[0]
+        cache, src, offsets, links = ri.load_source_cache(opt, comp, gen, alice)
+        ref_smpls = ProcessInfo.deserialize(os.path.join(
+            root, "primitives", "dance", "processed")).read_ref_info()["smpls"]
+        from scipy.signal import sosfiltfilt
+
+        pose = ref_smpls[:, 3:75]
+        check(np.array_equal(lowpass_filtfilt(pose, 300.0),
+                             sosfiltfilt(_butter_lowpass_sos(300.0, 2208.0), pose, axis=0)
+                             .astype(pose.dtype)),
+              "services: the reference's smoothing did not take the Butterworth filter")
+        ref_smpls = temporal_smooth_smpls(ref_smpls)
+        want = {"imitate": ri.imitate_sequence(
+            comp, gen, cache, imit.prepare_target_smpls(model, cache, ref_smpls),
+            offsets=offsets, links_ids=links, device=device)}
+        ring = imit.make_novel_view_smpls(torch.as_tensor(src["smpls"][0]), n_frames=CHUNK).numpy()
+        with table_route_env():
+            want["novel_view"] = ri.imitate_sequence(
+                comp, gen, cache, imit.prepare_target_smpls(model, cache, ring),
+                offsets=offsets, links_ids=links, device=device)
+        bob_cache = ri.load_source_cache(opt, comp, gen, parse_src_input("path?=bob,name?=bob")[0])[0]
+        upper = part_face_mask(comp.assets, ["upper"])
+        merged = imit.merge_source_caches(comp, [cache, bob_cache], [~upper, upper])
+        want["swap"] = ri.imitate_sequence(comp, gen, merged,
+                                           imit.prepare_target_smpls(model, merged, ref_smpls),
+                                           device=device)
+        del gen, cache, bob_cache, merged
+
+        # the viewer runs on the table route, so that K4 runs through a service
+        runs = (("imitate", ri.imitate, False, "alice-dance", n_ref, -1),
+                ("novel_view", novel_view, True, "alice-novel_view", CHUNK, CHUNK // 2),
+                ("swap", swap, False, "alice+bob-dance-swap", n_ref, -1))
+        for name, fn, table, synthesis, n_frames, other in runs:
+            if name == "swap":
+                opt.src_path = "path?=alice,name?=alice|path?=bob,name?=bob,parts?=upper"
+            with table_route_env() if table else contextlib.nullcontext():
+                zero_counts()
+                t0 = time.perf_counter()
+                fn(opt, device=device)
+                seconds = time.perf_counter() - t0
+                launches = read_counts()
+            frames = written(root, synthesis)
+            check(frames.shape == (n_frames, SIZE, SIZE, 3),
+                  f"{name}: wrote {frames.shape[0]} frames of {frames.shape[1:]}, want {n_frames}")
+            lsb = int(np.abs(frames - to_u8(want[name])).max())
+            check(lsb <= 1, f"{name}: written frames differ from the in-memory frames by {lsb} LSB")
+            check(int(np.abs(frames[0] - frames[other]).max()) > 2, f"{name}: the frames do not change")
+            check(launches["raster_flows_table" if table else "raster_flows_csr"] >= 1
+                  and launches["raster_flows_csr" if table else "raster_flows_table"] == 0
+                  and launches["grid_sample_nhwc"] >= 1 and launches["raster_fim"] >= 2,
+                  f"{name}: launches {launches}")
+            out[name] = {"wall_s": seconds, "frames": n_frames, "max_lsb_vs_in_memory": lsb,
+                         "launches": launches}
+    return out
 
 
 def main() -> int:
@@ -461,11 +777,18 @@ def main() -> int:
         emit("kernels", kernels=kernels)
         return 0
 
-    result = main_path(device)
+    ctx, result = main_path(device)
     emit("main_path", **result)
+    table = table_route(ctx, device)
+    emit("table_route", **table)
+    emit("temporal", **temporal_phase(ctx, device))
+    del ctx
+    emit("services", **services_phase(device))
 
+    # launches: K1-K3 on the main path's run, K4 on the table route's
+    launches = dict(result["launches"], raster_flows_table=table["launches"]["raster_flows_table"])
     line = {"kernels": [
-        {"name": name, "replaces": REPLACES[name], "launches": result["launches"][name],
+        {"name": name, "replaces": REPLACES[name], "launches": launches[name],
          "ms": v["wrapper_ms"], **v}  # `ms`: the whole call, as a user of the wrapper pays it
         for name, v in kernels.items()]}
     print(smi, flush=True)

@@ -1,14 +1,20 @@
-"""Motion-imitation inference as a functional pipeline.
+"""Inference runners (imitator, viewer, swapper) as a functional pipeline.
 
-Twin of `ipercore_tpu/models/imitator.py` for the non-temporal main path:
+Twin of `ipercore_tpu/models/imitator.py`:
 
   * `setup_source()` produces an immutable `SourceCache` (encoded SIDNet
     features, merged UV image, background), once per subject;
-  * `synthesize_frames()` maps a batch of target SMPLs to frames.
+  * `synthesize_frames()` maps a batch of target SMPLs to frames;
+  * `synthesize_frames_temporal()` feeds each prediction back as a temporal
+    source, frame after frame (the JAX `lax.scan` is a loop here);
+  * `make_novel_view_smpls` / `add_view_effect` / `add_bullet_time_effect`
+    make the viewer's targets, `merge_source_caches` the swapper's source.
 
 Kernel dispatch follows the device of the tensors: on CUDA the fused
-raster+flow kernel and the grid-sample kernel run; on the CPU their plain
-versions do. Both functions run without autograd.
+raster+flow kernels and the grid-sample kernel run; on the CPU their plain
+versions do. `IPERCORE_CSR_RASTER=0` selects the table-binned raster kernel
+for the frame geometry, as in the JAX package. The synthesis functions run
+without autograd.
 
 Precision. The f32 path is the reference path: it runs with
 `torch.backends.cudnn.allow_tf32 = False` and
@@ -19,6 +25,7 @@ is an explicit knob, off by default, for which no parity is claimed.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -27,9 +34,17 @@ import torch
 from ipercore_tpu_torch.models import flow_composition as fc
 from ipercore_tpu_torch.models import smpl as smpl_mod
 from ipercore_tpu_torch.ops import rasterizer as rz
-from ipercore_tpu_torch.ops.rasterizer_cuda import raster_flows
+from ipercore_tpu_torch.ops import rotations as rot
+from ipercore_tpu_torch.ops.rasterizer_cuda import raster_flows, raster_flows_table
 from ipercore_tpu_torch.ops.sampling_cuda import grid_sample_nhwc
 from ipercore_tpu_torch.utils import camera as cam_utils
+
+
+def use_csr_raster() -> bool:
+    """The fused frame geometry takes the exact CSR-binned kernel (K1) unless
+    `IPERCORE_CSR_RASTER=0`, which selects the table-binned kernel (K4) with
+    its per-tile capacity, as in the JAX package."""
+    return os.environ.get("IPERCORE_CSR_RASTER", "1") != "0"
 
 
 @contextlib.contextmanager
@@ -204,7 +219,10 @@ def make_frame_inputs(
         proj = rz.project_verts(details["verts"], details["cam"])
         face_verts = rz.verts_to_faces(proj, comp.model.faces)  # (T, F, 3, 3)
         aux = torch.cat([comp.assets.f2uvs[None], cache.src_f2pts], dim=0)  # (1+ns, F, 3, 2)
-        fim, flows = raster_flows(face_verts, aux, S)
+        if use_csr_raster():
+            fim, flows = raster_flows(face_verts, aux, S)
+        else:
+            fim, flows = raster_flows_table(face_verts, aux, S)
         cond = rz.encode_fim(fim, comp.assets.map_fn)
         ref_info = {"fim": fim, "cond": cond, "cam": details["cam"],
                     "verts": details["verts"], "j2d": details["j2d"]}
@@ -280,3 +298,163 @@ def synthesize_frames(
     bg = cache.bg_img.expand((T,) + tuple(cache.bg_img.shape[1:]))
     pred = tsf_mask * bg + (1.0 - tsf_mask) * tsf_img
     return pred, tsf_mask
+
+
+# ---------------------------------------------------------------------------
+# Temporal mode: the previous prediction fed back as an extra source
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def make_temporal_inputs_fused(
+    comp: fc.FlowComposer,
+    cache: SourceCache,
+    tgt_smpl: torch.Tensor,
+    offsets: torch.Tensor | float = 0.0,
+    links_ids: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Temporal-mode geometry in one fused raster pass: the per-frame aux
+    carries the previous frame's screen coordinates beside the UV and source
+    ones, so the frame-to-frame flow Ttt costs no extra raster (K1 with
+    per-frame aux (T, 2 + ns, F, 3, 2), then the UV warp).
+
+    Returns:
+        tsf_inputs (T, S, S, 6), Tst (T, ns, S/st, S/st, 2), Ttt (T, S, S, 2).
+    """
+    S = comp.image_size
+    T = tgt_smpl.shape[0]
+    ns = cache.src_f2pts.shape[0]
+    details = smpl_mod.get_details(comp.model, tgt_smpl, offsets, links_ids)
+    face_verts = rz.verts_to_faces(rz.project_verts(details["verts"], details["cam"]),
+                                   comp.model.faces)  # (T, F, 3, 3)
+    f2pts_seq = face_verts[..., :2]
+    prev_f2pts = torch.cat([f2pts_seq[:1], f2pts_seq[:-1]], dim=0)
+    shared = torch.cat([comp.assets.f2uvs[None], cache.src_f2pts], dim=0)  # (1+ns, F, 3, 2)
+    aux = torch.cat([shared[None].expand((T,) + tuple(shared.shape)), prev_f2pts[:, None]],
+                    dim=1)  # (T, 2+ns, F, 3, 2)
+    fim, flows = raster_flows(face_verts, aux, S)
+    cond = rz.encode_fim(fim, comp.assets.map_fn)
+    st = 2 if S >= 512 else 1  # the finest feature warp runs at S/2
+    Tst = flows[:, ::st, ::st, 1:1 + ns, :].permute(0, 3, 1, 2, 4)
+    Ttt = flows[..., 1 + ns, :]
+    uv_rep = cache.uv_img.expand((T,) + tuple(cache.uv_img.shape[1:]))
+    syn = grid_sample_nhwc(uv_rep, flows[..., 0, :].contiguous()).to(cache.uv_img.dtype)
+    return torch.cat([syn, cond], dim=-1), Tst, Ttt
+
+
+@torch.no_grad()
+def synthesize_frames_temporal(
+    comp: fc.FlowComposer,
+    generator,
+    cache: SourceCache,
+    tgt_smpl: torch.Tensor,
+    offsets: torch.Tensor | float = 0.0,
+    links_ids: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Temporal-mode synthesis: frames run one after another, each with the
+    previous prediction as an extra source. The feedback is the JAX twin's
+    (and training's): the foreground-masked previous image next to the warped
+    UV appearance of the previous input. The geometry is always the fused
+    pass (`make_temporal_inputs_fused`): the plain K1 takes per-frame aux on
+    the CPU too, so the JAX package's non-Pallas branch has no use here.
+
+    Args:
+        tgt_smpl: (T, 85).
+
+    Returns:
+        preds (T, S, S, 3) in [-1, 1]; masks (T, S, S, 1).
+    """
+    T = tgt_smpl.shape[0]
+    S = comp.image_size
+    tsf_inputs, Tst, Ttt = make_temporal_inputs_fused(comp, cache, tgt_smpl, offsets, links_ids)
+
+    prev_img = torch.zeros((S, S, 3), dtype=tsf_inputs.dtype, device=tsf_inputs.device)
+    prev_mask = torch.ones((S, S, 1), dtype=tsf_inputs.dtype, device=tsf_inputs.device)
+    prev_syn = tsf_inputs[0, ..., 0:3]
+    preds, masks = [], []
+    with reference_precision():
+        for t in range(T):
+            temp_in = torch.cat([prev_img * (1.0 - prev_mask), prev_syn], dim=-1)[None, None]
+            temp_enc, temp_res = generator.forward_src(temp_in, True)
+            img, mask = generator.forward_tsf(
+                tsf_inputs[t:t + 1], cache.src_enc_outs, cache.src_res_outs, Tst[t:t + 1],
+                temp_enc, temp_res, Ttt[t][None, None])
+            preds.append(mask[0] * cache.bg_img[0] + (1.0 - mask[0]) * img[0])
+            masks.append(mask[0])
+            prev_img, prev_mask, prev_syn = img[0], mask[0], tsf_inputs[t, ..., 0:3]
+    return torch.stack(preds), torch.stack(masks)
+
+
+# ---------------------------------------------------------------------------
+# Viewer: target SMPLs from rotations of the global orientation
+# ---------------------------------------------------------------------------
+
+
+def make_novel_view_smpls(src_smpl: torch.Tensor, n_frames: int = 180,
+                          use_t_pose: bool = False) -> torch.Tensor:
+    """A 360-degree ring about the y axis: (85,) source SMPL -> (n_frames, 85),
+    frame i turned by 2*pi*i/n_frames; `use_t_pose` zeroes the body pose
+    (global orientation kept)."""
+    base = src_smpl.expand(n_frames, 85).clone()
+    if use_t_pose:
+        base[:, 6:75] = 0.0
+    angles = torch.arange(n_frames, dtype=base.dtype, device=base.device) * (2.0 * np.pi / n_frames)
+    zeros = torch.zeros_like(angles)
+    ring = rot.rodrigues(torch.stack([zeros, angles, zeros], dim=-1))
+    base[:, 3:6] = rot.rotmat_to_axis_angle(ring @ rot.rodrigues(base[:, 3:6]))
+    return base
+
+
+def add_view_effect(smpls: torch.Tensor, angle_deg: float) -> torch.Tensor:
+    """Turn every frame's global orientation by `angle_deg` about the y axis."""
+    a = torch.deg2rad(torch.tensor(angle_deg, dtype=smpls.dtype, device=smpls.device))
+    R = rot.rodrigues(torch.stack([torch.zeros_like(a), a, torch.zeros_like(a)]))
+    out = smpls.clone()
+    out[:, 3:6] = rot.rotmat_to_axis_angle(R[None] @ rot.rodrigues(smpls[:, 3:6]))
+    return out
+
+
+def add_bullet_time_effect(smpls: torch.Tensor, frame_ids: list[int],
+                           duration: int = 60) -> torch.Tensor:
+    """Freeze the pose at each of `frame_ids` and insert a 360-degree ring of
+    `duration` frames after it. The output length depends on the data, so the
+    splicing runs on the host."""
+    s = smpls.cpu().numpy()
+    out, prev = [], 0
+    for fid in sorted(frame_ids):
+        fid = min(max(fid, 0), len(s) - 1)
+        out.append(s[prev:fid + 1])
+        out.append(make_novel_view_smpls(torch.as_tensor(s[fid]), n_frames=duration).numpy())
+        prev = fid + 1
+    out.append(s[prev:])
+    return torch.as_tensor(np.concatenate(out, axis=0), device=smpls.device)
+
+
+# ---------------------------------------------------------------------------
+# Swapper: merge several people's caches by part selection
+# ---------------------------------------------------------------------------
+
+
+def merge_source_caches(comp: fc.FlowComposer, caches: list[SourceCache],
+                        part_masks: list[torch.Tensor]) -> SourceCache:
+    """Merge per-person source caches for appearance transfer: features are
+    concatenated along the source axis, each person's flow sources keep only
+    its selected faces, and the UV images are merged by visibility.
+
+    Args:
+        caches: one SourceCache per person, the primary first;
+        part_masks: (F,) bool per person.
+    """
+    enc = [torch.cat(xs, dim=1) for xs in zip(*[c.src_enc_outs for c in caches])]
+    res = [torch.cat(xs, dim=1) for xs in zip(*[c.src_res_outs for c in caches])]
+    f2pts = torch.cat([
+        rz.select_f2pts(c.src_f2pts, m.expand((c.src_f2pts.shape[0],) + tuple(m.shape)))
+        for c, m in zip(caches, part_masks)], dim=0)
+    uv_imgs = torch.cat([c.uv_img for c in caches], dim=0)  # (P, S, S, 3)
+    vis = (uv_imgs.abs().sum(dim=-1, keepdim=True) > 1e-6).to(uv_imgs.dtype)
+    return SourceCache(
+        src_enc_outs=tuple(enc), src_res_outs=tuple(res),
+        uv_img=fc.merge_uv_img(uv_imgs, vis)[None], bg_img=caches[0].bg_img,
+        src_f2pts=f2pts,
+        src_cam=torch.cat([c.src_cam for c in caches], dim=0),
+        src_shape=torch.cat([c.src_shape for c in caches], dim=0))

@@ -234,6 +234,7 @@ def load_assets(
     facial_path: str | None = None,
     k_nearest: int = 3,
     device: Device = "cuda",
+    synthetic: bool = False,
 ) -> MeshAssets:
     """Build MeshAssets from real reference asset files when available,
     otherwise synthesize deterministic equivalents from the body model.
@@ -242,10 +243,15 @@ def load_assets(
     with identical topology (`nmr.py:167-209`): `mapper_fim_enc.txt` drives the
     image->UV direction and parts, `mapper_uv.txt` the UV->image direction.
     Here a single template serves both directions (they are mutually inverse
-    by construction in our convention).
+    by construction in our convention). `synthetic=True` derives the UV atlas
+    and the part labels from the body model whatever files exist, as the JAX
+    package's `build_runtime` does for its smoke model.
     """
-    uv_map_path = uv_map_path or find_asset("mapper_uv.txt")
-    part_path = part_path or find_asset("smpl_part_info.json")
+    if synthetic:
+        uv_map_path = part_path = None
+    else:
+        uv_map_path = uv_map_path or find_asset("mapper_uv.txt")
+        part_path = part_path or find_asset("smpl_part_info.json")
     front_path = front_path or find_asset("front_body.json")
     facial_path = facial_path or find_asset("front_facial.json")
 

@@ -223,39 +223,55 @@ def attention_fuse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
 
 class SelfAttentionLWB(nn.Module):
     """Attention-fuse (pre-)warped source features and modulate the transfer
-    stream by SPADE (mode="spade", the only mode ported so far)."""
+    stream by SPADE (mode="spade", the only mode ported so far). With
+    `temporal`, warped features of previous predictions join the sources as
+    extra keys and values through the same `fk` / `fv` convolutions, so a
+    temporal block has no weights of its own."""
 
-    def __init__(self, channel: int, src_channel: int, tsf_channel: int, mode: str = "spade"):
+    def __init__(self, channel: int, src_channel: int, tsf_channel: int, mode: str = "spade",
+                 temporal: bool = False):
         super().__init__()
         if mode != "spade":
             raise NotImplementedError(
                 f"SelfAttentionLWB mode {mode!r} belongs to a later slice of the port")
         self.channel = channel
+        self.temporal = temporal
         self.fk = _conv(src_channel, channel, 1)
         self.fv = _conv(src_channel, channel, 1)
         self.fq = _conv(tsf_channel, channel, 1)
         self.SPADE_0 = SPADE(norm_nc=tsf_channel, cond_nc=channel)
 
-    def forward(self, tsf_x, src_x, Tst=None, pre_warped: bool = False):
+    def _warped(self, x, flow, pre_warped: bool, h: int, w: int):
+        """(bs, n, H', W', c) features -> (bs * n, h, w, c), warped."""
+        bs, n = x.shape[0], x.shape[1]
+        if pre_warped:
+            return x.reshape((bs * n, h, w) + tuple(x.shape[4:]))
+        return warp(x.reshape((bs * n,) + tuple(x.shape[2:])),
+                    flow.reshape((bs * n,) + tuple(flow.shape[2:])))
+
+    def forward(self, tsf_x, src_x, Tst=None, temp_x=None, Ttt=None, pre_warped: bool = False):
         """
         Args:
             tsf_x: (bs, h, w, c1) transfer-stream feature.
             src_x: (bs, ns, H', W', c2) per-source features, already warped to
                 the target pose when pre_warped=True.
             Tst: (bs, ns, H, W, 2) flows (ignored when pre_warped).
+            temp_x: optional (bs, nt, H', W', c2) temporal features, used only
+                by a temporal block and only together with Ttt.
+            Ttt: optional (bs, nt, H, W, 2).
 
         Returns:
             (bs, h, w, c1) modulated feature.
         """
         bs, ns = src_x.shape[0], src_x.shape[1]
         h, w = tsf_x.shape[1], tsf_x.shape[2]
-        if pre_warped:
-            src_warp = src_x.reshape((bs * ns, h, w) + tuple(src_x.shape[4:]))
-        else:
-            src_flat = src_x.reshape((bs * ns,) + tuple(src_x.shape[2:]))
-            flow_flat = Tst.reshape((bs * ns,) + tuple(Tst.shape[2:]))
-            src_warp = warp(src_flat, flow_flat)
-        K = conv_nhwc(self.fk, src_warp).reshape(bs, ns, h, w, self.channel)
-        V = conv_nhwc(self.fv, src_warp).reshape(bs, ns, h, w, self.channel)
+        src_warp = self._warped(src_x, Tst, pre_warped, h, w)
+        K = [conv_nhwc(self.fk, src_warp).reshape(bs, ns, h, w, self.channel)]
+        V = [conv_nhwc(self.fv, src_warp).reshape(bs, ns, h, w, self.channel)]
+        if self.temporal and temp_x is not None and Ttt is not None:
+            nt = temp_x.shape[1]
+            temp_warp = self._warped(temp_x, Ttt, pre_warped, h, w)
+            K.append(conv_nhwc(self.fk, temp_warp).reshape(bs, nt, h, w, self.channel))
+            V.append(conv_nhwc(self.fv, temp_warp).reshape(bs, nt, h, w, self.channel))
         q = conv_nhwc(self.fq, tsf_x)
-        return self.SPADE_0(tsf_x, attention_fuse(q, K, V))
+        return self.SPADE_0(tsf_x, attention_fuse(q, torch.cat(K, dim=1), torch.cat(V, dim=1)))

@@ -1,8 +1,9 @@
 """Generators: BGNet inpaintor + the Liquid-Warping generator (AttLWB-SPADE).
 
 Twin of `ipercore_tpu/models/networks/generators.py`. Only the default
-generator of the repo, AttLWB-SPADE without temporal feedback, is ported; the
-other registry names raise `NotImplementedError` naming the later slice.
+generator of the repo, AttLWB-SPADE, is ported, with and without temporal
+feedback; the other registry names raise `NotImplementedError` naming the
+later slice.
 
 Config mirrors the JAX package's:
 {"BGNet": {...}, "SIDNet": {...}, "TSFNet": {...}} with num_filters / n_res_block.
@@ -74,12 +75,13 @@ class LWBGenerator(nn.Module):
     """
 
     def __init__(self, cfg, fusion_mode: str = "spade", use_bg_net: bool = True,
-                 feat_warp_stride: int = 1):
+                 feat_warp_stride: int = 1, temporal: bool = False):
         super().__init__()
         if fusion_mode != "spade":
             raise NotImplementedError(
                 f"fusion mode {fusion_mode!r} belongs to a later slice of the port")
         self.feat_warp_stride = feat_warp_stride
+        self.temporal = temporal
         self.use_bg_net = use_bg_net
         if use_bg_net:
             self.bg_net = ResNetInpaintor(
@@ -101,10 +103,11 @@ class LWBGenerator(nn.Module):
         for i in range(tsf_res):
             self.add_module(f"tsf_res_blocks_{i}", ResidualBlock(tsf_filters[-1]))
         for i, c in enumerate(tsf_filters):
-            self.add_module(f"enc_fusion_{i}", SelfAttentionLWB(c, sid_filters[i], c))
+            self.add_module(f"enc_fusion_{i}",
+                            SelfAttentionLWB(c, sid_filters[i], c, temporal=temporal))
         for i in range(tsf_res):
-            self.add_module(f"res_fusion_{i}",
-                            SelfAttentionLWB(tsf_filters[-1], sid_filters[-1], tsf_filters[-1]))
+            self.add_module(f"res_fusion_{i}", SelfAttentionLWB(
+                tsf_filters[-1], sid_filters[-1], tsf_filters[-1], temporal=temporal))
 
     # --- SIDNet -----------------------------------------------------------
     def forward_src(self, src_inputs, only_enc: bool = True):
@@ -155,32 +158,50 @@ class LWBGenerator(nn.Module):
             out = warp(flat, fl)
         return out.reshape((bs, n) + tuple(out.shape[1:]))
 
-    def forward_tsf(self, tsf_inputs, src_enc_outs, src_res_outs, Tst):
+    def _prewarp_stages(self, enc_outs, res_outs, flows):
+        """Pre-warp every encoder stage, and all residual stages in one call."""
+        warped_enc = [self._prewarp(f, flows) for f in enc_outs]
+        warped_res = []
+        if res_outs:  # n_res_block can be 0
+            res_cat = torch.cat(list(res_outs), dim=-1)
+            warped_res = torch.chunk(self._prewarp(res_cat, flows), len(res_outs), dim=-1)
+        return warped_enc, warped_res
+
+    def forward_tsf(self, tsf_inputs, src_enc_outs, src_res_outs, Tst,
+                    temp_enc_outs=None, temp_res_outs=None, Ttt=None):
         """One TSF step.
 
         Args:
             tsf_inputs: (bs, h, w, 6) warped-UV image + target condition map.
             src_enc_outs / src_res_outs: SIDNet stages, each (bs, ns, h_i, w_i, c_i).
             Tst: (bs, ns, H, W, 2) source -> target flows.
+            temp_enc_outs / temp_res_outs: optional SIDNet stages of the
+                previous predictions, each (bs, nt, h_i, w_i, c_i);
+            Ttt: optional (bs, nt, H, W, 2) previous -> current flows. The
+                temporal features are used when both are given (and the
+                generator is temporal).
 
         Returns:
             tsf_img (bs, h, w, 3), tsf_mask (bs, h, w, 1).
         """
-        warped_enc = [self._prewarp(f, Tst) for f in src_enc_outs]
-        warped_res = []
-        if src_res_outs:  # n_res_block can be 0
-            res_cat = torch.cat(list(src_res_outs), dim=-1)
-            warped_res = torch.chunk(self._prewarp(res_cat, Tst), len(src_res_outs), dim=-1)
+        warped_enc, warped_res = self._prewarp_stages(src_enc_outs, src_res_outs, Tst)
+        use_temp = temp_enc_outs is not None and Ttt is not None
+        if use_temp:
+            temp_enc, temp_res = self._prewarp_stages(temp_enc_outs, temp_res_outs, Ttt)
 
         x = tsf_inputs
         enc_outs = []
         for i in range(len(self.tsf_filters)):
             x = F.relu(conv_nhwc(getattr(self, f"tsf_enc_{i}"), x))
-            x = getattr(self, f"enc_fusion_{i}")(x, warped_enc[i], Tst, pre_warped=True)
+            x = getattr(self, f"enc_fusion_{i}")(
+                x, warped_enc[i], Tst, temp_x=temp_enc[i] if use_temp else None, Ttt=Ttt,
+                pre_warped=True)
             enc_outs.append(x)
         for i in range(self.tsf_res):
             x = getattr(self, f"tsf_res_blocks_{i}")(x)
-            x = getattr(self, f"res_fusion_{i}")(x, warped_res[i], Tst, pre_warped=True)
+            x = getattr(self, f"res_fusion_{i}")(
+                x, warped_res[i], Tst, temp_x=temp_res[i] if use_temp else None, Ttt=Ttt,
+                pre_warped=True)
         x = self.tsf_net_dec(x, enc_outs)
         return self.tsf_heads(x)
 
@@ -193,16 +214,15 @@ GENERATOR_NAMES = (
 
 def build_generator(name: str, cfg, temporal: bool = False, feat_warp_stride: int = 1,
                     device: Union[str, torch.device] = "cuda") -> nn.Module:
-    """Build a generator in eval mode on `device`. Only "AttLWB-SPADE" without
-    temporal feedback is ported."""
+    """Build a generator in eval mode on `device`. Only "AttLWB-SPADE" is
+    ported; `temporal` adds the feedback of previous predictions (no new
+    weights)."""
     if name not in GENERATOR_NAMES:
         raise KeyError(f"unknown generator {name!r}; have {sorted(GENERATOR_NAMES)}")
     if name != "AttLWB-SPADE":
         raise NotImplementedError(
             f"generator {name!r} is not ported yet: the rest of the generator zoo "
             "belongs to the slice after temporal mode, viewer and swapper")
-    if temporal:
-        raise NotImplementedError("temporal feedback belongs to the next slice of the port")
     gen = LWBGenerator(cfg, fusion_mode="spade", use_bg_net=True,
-                       feat_warp_stride=feat_warp_stride)
+                       feat_warp_stride=feat_warp_stride, temporal=temporal)
     return gen.to(device).eval()

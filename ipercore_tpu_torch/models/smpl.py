@@ -11,6 +11,7 @@ The 85-dim theta layout is kept: (cam 3 | pose 72 | shape 10). SMPL-H models
 from __future__ import annotations
 
 import json
+import os
 import pickle
 from typing import NamedTuple, Optional, Union
 
@@ -325,6 +326,21 @@ def template_model(
         posedirs=posedirs, j_regressor=j_regressor, lbs_weights=lbs_weights,
         parents=parents, joint_regressor=j_regressor[_COCOPLUS_FROM_SMPL],
         faces=faces, hands_mean=np.zeros((0,), np.float32))
+
+
+def resolve_body_model(opt=None, device: Device = "cuda") -> SMPLModel:
+    """The one body-model choice of every service: the pickle that
+    `opt.smpl_model` names when it exists, else the small smoke mesh
+    (`opt.smoke_model`: `synthetic_model(nu=20, nv=18)`), else
+    `template_model()` (the real SMPL template when its files are present,
+    otherwise the synthetic stand-in)."""
+    get = getattr(opt, "get", None) if opt is not None else None
+    smpl_path = get("smpl_model", "") if get else ""
+    if smpl_path and os.path.exists(smpl_path):
+        return load_model(smpl_path, device=device)
+    if get and get("smoke_model", False):
+        return synthetic_model(nu=20, nv=18, device=device)
+    return template_model(device=device)
 
 
 def _rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor,

@@ -149,27 +149,40 @@ def rasterize(face_verts: torch.Tensor, size: int, chunk: int | None = None) -> 
     if chunk is None:
         chunk = _auto_chunk(size)
     F = face_verts.shape[0]
-    P = size * size
     dev, dt = face_verts.device, face_verts.dtype
     pixels = _pixel_centers(size, dt, dev)
-    px, py = pixels[:, 0], pixels[:, 1]  # (P,)
     eps_px = 2.0 / size
 
     M_all, valid_all = _face_bary_matrices(face_verts)
     bbox_all = _face_bbox(face_verts)
 
-    best_z = torch.full((P,), float("inf"), dtype=dt, device=dev)
-    best_id = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    best_w = torch.zeros((P, 3), dtype=dt, device=dev)
-    pix = torch.arange(P, device=dev)
+    coords = pixels[:size, 0]  # the pixel-centre values of both axes
+    best_z = torch.full((size, size), float("inf"), dtype=dt, device=dev)
+    best_id = torch.full((size, size), -1, dtype=torch.int32, device=dev)
+    best_w = torch.zeros((size, size, 3), dtype=dt, device=dev)
+
+    def span(lo, hi):
+        # the pixel indices whose centre lies in [lo, hi]: a range, since the
+        # centres increase
+        idx = ((coords >= lo) & (coords <= hi)).nonzero()
+        return (int(idx[0]), int(idx[-1]) + 1) if idx.numel() else (0, 0)
 
     for start in range(0, F, chunk):
         M = M_all[start:start + chunk]  # (c, 3, 3)
         valid = valid_all[start:start + chunk]
         bbox = bbox_all[start:start + chunk]
         zf = face_verts[start:start + chunk, :, 2]  # (c, 3)
+        # only the pixels inside the union of the chunk's guarded boxes can
+        # pass `in_bbox` (rounding is monotonic, so min(b) - eps <= b - eps):
+        # the others are skipped, with the same result
+        x0, x1 = span(bbox[:, 0].min() - eps_px, bbox[:, 1].max() + eps_px)
+        y0, y1 = span(bbox[:, 2].min() - eps_px, bbox[:, 3].max() + eps_px)
+        if x0 == x1 or y0 == y1:
+            continue
+        px = coords[x0:x1].expand(y1 - y0, x1 - x0).reshape(-1)
+        py = coords[y0:y1, None].expand(y1 - y0, x1 - x0).reshape(-1)
         a, b, c = M[..., 0, None], M[..., 1, None], M[..., 2, None]  # (c, 3, 1)
-        W = fma32(b, py, a * px) + c  # (c, 3, P)
+        W = fma32(b, py, a * px) + c  # (c, 3, p)
         inside = (W >= -1e-6).all(dim=1)
         in_bbox = ((px >= bbox[:, 0:1] - eps_px) & (px <= bbox[:, 1:2] + eps_px)
                    & (py >= bbox[:, 2:3] - eps_px) & (py <= bbox[:, 3:4] + eps_px))
@@ -177,12 +190,17 @@ def rasterize(face_verts: torch.Tensor, size: int, chunk: int | None = None) -> 
         ok = inside & in_bbox & valid[:, None] & (depth > NEAR) & (depth < FAR)
         depth = torch.where(ok, depth, torch.full_like(depth, float("inf")))
         cand_z, arg = depth.min(dim=0)  # first minimum
-        take = cand_z < best_z
-        best_z = torch.where(take, cand_z, best_z)
-        best_id = torch.where(take, (arg + start).to(torch.int32), best_id)
-        best_w = torch.where(take[:, None], W[arg, :, pix], best_w)
+        bz = best_z[y0:y1, x0:x1].reshape(-1)
+        take = cand_z < bz
+        shape = (y1 - y0, x1 - x0)
+        best_z[y0:y1, x0:x1] = torch.where(take, cand_z, bz).reshape(shape)
+        best_id[y0:y1, x0:x1] = torch.where(
+            take, (arg + start).to(torch.int32), best_id[y0:y1, x0:x1].reshape(-1)).reshape(shape)
+        w = W[arg, :, torch.arange(px.numel(), device=dev)]
+        best_w[y0:y1, x0:x1] = torch.where(
+            take[:, None], w, best_w[y0:y1, x0:x1].reshape(-1, 3)).reshape(shape + (3,))
 
-    return RasterOutput(fim=best_id.reshape(size, size), wim=best_w.reshape(size, size, 3))
+    return RasterOutput(fim=best_id, wim=best_w)
 
 
 def rasterize_batch(face_verts: torch.Tensor, size: int, chunk: int | None = None) -> RasterOutput:

@@ -6,13 +6,18 @@
 `rasterize_pallas_batch`). The device code is `csrc/raster.cu`; see its header
 for the design and for what bounds it on an H100 (output bytes and the
 per-tile face walk are both tens of microseconds at 512^2, so the binning
-below — a few dozen small PyTorch launches and one host sync — costs more than
-the kernel).
+below — a few dozen small PyTorch launches and two host syncs — costs more
+than the kernel). `raster_flows_table` replaces `_raster_flow_kernel` (entry
+`rasterize_flows_pallas`), the fixed-capacity variant that keeps the JAX
+package's 8x128 tiles and nearest-first tables; its device code is
+`csrc/raster_table.cu` and its section below says why the tile stays.
 
-Binning. As in the JAX package it is ordinary array code outside the kernel:
-each valid face contributes one (tile, face) entry for every 16x16 tile its
-bounding box (+-2 px) touches, entries are sorted by `tile * F + face`, and
-`searchsorted` gives every tile's segment. Unlike the TPU version it is exact:
+Binning. As in the JAX package it is ordinary array code outside the kernel,
+shared by both tile shapes (`_bin_entries`): each valid face contributes one
+(tile, face) entry for every tile its padded bounding box touches, entries are
+sorted by `tile * F + key`, and `searchsorted` gives every tile's segment. For
+K1 and K3 the tiles are 16x16, the box is padded by 2 px and the key is the
+face id. Unlike the TPU version it is exact:
 there is no `entries_per_face` cap, no `ncap` and no `top_k` capacity, so
 nothing can be truncated. The `with_stats` contract is kept (`max_span`,
 `total_entries`, `max_tile_load`, `n_overflow_tiles` = 0) so a caller can still
@@ -64,9 +69,44 @@ def face_geometry(face_verts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     return geom.contiguous(), valid
 
 
+def _bin_entries(tx0: torch.Tensor, tx1: torch.Tensor, ty0: torch.Tensor, ty1: torch.Tensor,
+                 valid: torch.Tensor, gx: int, n_tiles: int,
+                 key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One (tile, face) entry for every tile in each valid face's inclusive
+    tile range, sorted by global tile and then by `key`.
+
+    Args:
+        tx0, tx1, ty0, ty1: (T, F) int64 tile ranges; valid: (T, F) bool;
+        gx: tiles per row; n_tiles: tiles per frame;
+        key: (T, F) int64 order of the faces inside a tile, unique per frame
+            and in [0, F).
+
+    Returns:
+        tiles (E,) global tile `frame * n_tiles + tile` of every entry, sorted;
+        keys (E,) the entries' keys; seg (T * n_tiles + 1,) segment starts;
+        span (T * F,) entries per face. One host sync sizes the entries.
+    """
+    T, F = key.shape
+    dev = key.device
+    ntx = (tx1 - tx0 + 1).reshape(-1)
+    span = torch.where(valid.reshape(-1), ntx * (ty1 - ty0 + 1).reshape(-1), torch.zeros_like(ntx))
+    ends = torch.cumsum(span, 0)
+    total = int(ends[-1]) if ends.numel() else 0  # host sync: sizes the arrays below
+    face = torch.repeat_interleave(torch.arange(T * F, device=dev), span, output_size=total)
+    e = torch.arange(total, device=dev) - (ends - span)[face]
+    dy = e // ntx[face]
+    dx = e - dy * ntx[face]
+    frame = face // F
+    tile = frame * n_tiles + (ty0.reshape(-1)[face] + dy) * gx + tx0.reshape(-1)[face] + dx
+    sorted_key, _ = torch.sort(tile * F + key.reshape(-1)[face])
+    tiles = sorted_key // F
+    seg = torch.searchsorted(tiles, torch.arange(T * n_tiles + 1, device=dev))
+    return tiles, sorted_key - tiles * F, seg, span
+
+
 def bin_faces(face_verts: torch.Tensor, valid: torch.Tensor,
               size: int) -> tuple[torch.Tensor, torch.Tensor, dict]:
-    """Exact sort-based face binning.
+    """Exact sort-based face binning into 16x16 tiles, by face id in a tile.
 
     Args:
         face_verts: (T, F, 3, 3); valid: (T, F) bool.
@@ -79,10 +119,8 @@ def bin_faces(face_verts: torch.Tensor, valid: torch.Tensor,
         stats: max_span, total_entries, max_tile_load (python ints).
     """
     T, F = face_verts.shape[0], face_verts.shape[1]
-    dev = face_verts.device
     tile = TILE
     g = (size + tile - 1) // tile
-    n_tiles = g * g
     x, y = face_verts[..., 0], face_verts[..., 1]
 
     def tile_range(v):
@@ -94,27 +132,13 @@ def bin_faces(face_verts: torch.Tensor, valid: torch.Tensor,
 
     tx0, tx1 = tile_range(x)
     ty0, ty1 = tile_range(y)
-    ntx = (tx1 - tx0 + 1).reshape(-1)
-    span = torch.where(valid.reshape(-1), ntx * (ty1 - ty0 + 1).reshape(-1),
-                       torch.zeros_like(ntx))  # (T*F,)
-    ends = torch.cumsum(span, 0)
-    total = int(ends[-1])  # host sync: the entry count sizes the arrays below
-    face = torch.repeat_interleave(torch.arange(T * F, device=dev), span, output_size=total)
-    e = torch.arange(total, device=dev) - (ends - span)[face]
-    dy = e // ntx[face]
-    dx = e - dy * ntx[face]
-    frame = face // F
-    tile_id = frame * n_tiles + (ty0.reshape(-1)[face] + dy) * g + tx0.reshape(-1)[face] + dx
-    key, _ = torch.sort(tile_id * F + (face - frame * F))
-    tiles_sorted = key // F
-    fids = (key - tiles_sorted * F).to(torch.int32)
-    seg = torch.searchsorted(
-        tiles_sorted, torch.arange(T * n_tiles + 1, device=dev)).to(torch.int32)
+    face_id = torch.arange(F, device=face_verts.device).expand(T, F)
+    _, fids, seg, span = _bin_entries(tx0, tx1, ty0, ty1, valid, g, g * g, face_id)
     load = seg[1:] - seg[:-1]
-    stats = {"max_span": int(span.max()) if span.numel() else 0,
-             "total_entries": total,
-             "max_tile_load": int(load.max()) if load.numel() else 0}
-    return fids.contiguous(), seg.contiguous(), stats
+    max_span, max_load = (torch.stack([span.max(), load.max()]).tolist()
+                          if span.numel() else (0, 0))  # host sync: the stats
+    stats = {"max_span": max_span, "total_entries": fids.numel(), "max_tile_load": max_load}
+    return fids.to(torch.int32).contiguous(), seg.to(torch.int32).contiguous(), stats
 
 
 def _check_faces(face_verts: torch.Tensor) -> None:
@@ -283,3 +307,264 @@ def launch_raster_fim(plan: RasterPlan, N: int, F: int, size: int) -> rz.RasterO
 
 
 raster_fim.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K4: fused raster + flows over a nearest-first, fixed-capacity tile table
+# --------------------------------------------------------------------------
+#
+# Twin of `rasterize_flows_pallas` and its binning `_bin_faces`. Unlike K1 and
+# K3 this function has a capacity: each 8x128-pixel tile keeps at most `k`
+# faces, the nearest first by minimum vertex depth, and drops the rest. Which
+# faces survive an overflow depends on which tiles a face's box touches, so
+# the tile shape (8 rows x 128 columns) is part of the function, not a TPU
+# detail: it is kept here, and so is the table order, which also decides
+# depth ties (the entry earlier in the table wins: smaller minimum depth,
+# then lower face id).
+#
+# Pixel centres are JAX K4's: y = (gy*8 + r) * f32(2/S) + f32((1-S)/S), the
+# product and the sum each rounded to f32 (x likewise with 128). For S a power
+# of two this equals K1's (2i + 1 - S) / S bit for bit; for other multiples
+# of 128 the two may differ in the last bit.
+
+TABLE_TILE_H, TABLE_TILE_W = 8, 128  # must equal TILE_H, TILE_W in csrc/raster_table.cu
+
+
+class TableBins(NamedTuple):
+    """The per-tile face tables of one batch.
+
+    ids: (T, n_tiles, k) int32 face ids in table order, -1 past `kept`;
+    kept: (T, n_tiles) int32 = min(true_counts, k);
+    true_counts: (T, n_tiles) int32 faces whose box touches the tile;
+    stats: max_tile_load, n_overflow_tiles, total_entries (python ints), or
+        None when the caller did not ask for them.
+    Tiles are numbered row-major: tile = ty * (S // 128) + tx.
+    """
+
+    ids: torch.Tensor
+    kept: torch.Tensor
+    true_counts: torch.Tensor
+    stats: dict
+
+
+def _check_table_inputs(face_verts: torch.Tensor, size: int) -> None:
+    if face_verts.dim() != 4 or face_verts.shape[-2:] != (3, 3):
+        raise ValueError(f"face_verts must be (T, F, 3, 3), got {tuple(face_verts.shape)}")
+    if face_verts.dtype != torch.float32:
+        raise ValueError(f"face_verts must be float32, got {face_verts.dtype}")
+    if size <= 0 or size % TABLE_TILE_W:
+        raise ValueError(f"size must be a positive multiple of {TABLE_TILE_W}, got {size}")
+
+
+def bin_faces_table(face_verts: torch.Tensor, size: int, k: int = 2048,
+                    with_stats: bool = False) -> TableBins:
+    """Nearest-first fixed-capacity binning into 8x128 tiles (JAX `_bin_faces`).
+
+    A valid face belongs to every tile whose index range its pixel box, padded
+    by 1 px, covers: `to_px(v) = (v + 1) * (S/2) - 0.5` in f32, then
+    `floor((lo - 1) / 128)`, `floor((hi + 1) / 128)` (rows by 8), clipped to
+    the grid. Faces are ranked per frame by a stable argsort of their minimum
+    vertex depth; each tile keeps its first `min(true_count, k)` faces in that
+    order. Runs on the tensors' device; one host sync sizes the entry array,
+    and `with_stats` adds one more for the stats.
+
+    Args:
+        face_verts: (T, F, 3, 3) f32 projected faces.
+        size: S, a multiple of 128.
+        k: capacity per tile.
+        with_stats: fill `stats`; otherwise it is None.
+    """
+    _check_table_inputs(face_verts, size)
+    T, F = face_verts.shape[0], face_verts.shape[1]
+    dev = face_verts.device
+    gy, gx = size // TABLE_TILE_H, size // TABLE_TILE_W
+    n_tiles = gy * gx
+    _, valid = rz._face_bary_matrices(face_verts)
+    x, y = face_verts[..., 0], face_verts[..., 1]
+
+    def to_px(v):
+        return (v + 1.0) * (size * 0.5) - 0.5
+
+    def tiles(lo, hi, tile, g):
+        t0 = torch.floor((to_px(lo) - 1) / tile).clamp(0, g - 1).long()
+        t1 = torch.floor((to_px(hi) + 1) / tile).clamp(0, g - 1).long()
+        return t0, t1
+
+    tx0, tx1 = tiles(x.amin(-1), x.amax(-1), TABLE_TILE_W, gx)
+    ty0, ty1 = tiles(y.amin(-1), y.amax(-1), TABLE_TILE_H, gy)
+    order = torch.argsort(face_verts[..., 2].amin(-1), dim=-1, stable=True)  # (T, F) nearest first
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(F, device=dev).expand(T, F).contiguous())
+
+    tile_s, rank_s, seg, _ = _bin_entries(tx0, tx1, ty0, ty1, valid, gx, n_tiles, rank)
+    fid = order.reshape(-1)[(tile_s // n_tiles) * F + rank_s]  # rank -> face id
+    true_counts = (seg[1:] - seg[:-1]).to(torch.int32)
+    pos = torch.arange(tile_s.numel(), device=dev) - seg[tile_s]
+    # entries past the capacity go to one extra slot that is cut off after
+    # the scatter: no boolean mask, so no host sync
+    slot = torch.where(pos < k, tile_s * k + pos, torch.full_like(pos, T * n_tiles * k))
+    ids = torch.full((T * n_tiles * k + 1,), -1, dtype=torch.int32, device=dev)
+    ids.scatter_(0, slot, fid.to(torch.int32))
+    kept = true_counts.clamp(max=k)
+    stats = None
+    if with_stats:
+        max_load, n_over = (torch.stack([true_counts.max(), (true_counts > k).sum()]).tolist()
+                            if true_counts.numel() else (0, 0))  # host sync: the stats
+        stats = {"max_tile_load": max_load, "n_overflow_tiles": n_over,
+                 "total_entries": tile_s.numel()}
+    return TableBins(ids[:-1].reshape(T, n_tiles, k), kept.reshape(T, n_tiles),
+                     true_counts.reshape(T, n_tiles), stats)
+
+
+def _table_pixel_centres(size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n_tiles, 1024) x and y of every tile's pixels, row-major in the tile,
+    by JAX K4's formula."""
+    gy, gx = size // TABLE_TILE_H, size // TABLE_TILE_W
+    step = torch.tensor(2.0 / size, dtype=torch.float32, device=device)
+    off = torch.tensor((1.0 - size) / size, dtype=torch.float32, device=device)
+    r = torch.arange(size, device=device, dtype=torch.float32) * step + off  # (S,)
+    py = r.reshape(gy, 1, TABLE_TILE_H, 1).expand(gy, gx, TABLE_TILE_H, TABLE_TILE_W)
+    px = r.reshape(1, gx, 1, TABLE_TILE_W).expand(gy, gx, TABLE_TILE_H, TABLE_TILE_W)
+    n = gy * gx
+    return px.reshape(n, -1), py.reshape(n, -1)
+
+
+def table_bary(a, b, c, px, py):
+    """K4's barycentric `a*px + b*py + c` as `fma(a, px, b*py) + c`: the order
+    of the JAX kernel in interpret mode on the CPU, found by experiment
+    (`tests/test_torch_raster_table.py::test_table_bary_order`). It is not
+    K1's `fma(b, py, a*px) + c`: XLA contracts the kernel body otherwise."""
+    return rz.fma32(a, px, b * py) + c
+
+
+def _check_table_aux(face_verts: torch.Tensor, aux_pts: torch.Tensor) -> int:
+    F = face_verts.shape[1]
+    if aux_pts.dim() != 4 or tuple(aux_pts.shape[1:]) != (F, 3, 2):
+        raise ValueError(f"aux_pts must be (J, F, 3, 2) with F={F} and shared by the batch; "
+                         f"got {tuple(aux_pts.shape)}")
+    if aux_pts.dtype != torch.float32 or aux_pts.device != face_verts.device:
+        raise ValueError("aux_pts must be float32 on the device of face_verts")
+    return aux_pts.shape[0]
+
+
+def raster_flows_table_plain(face_verts: torch.Tensor, aux_pts: torch.Tensor, size: int,
+                             k: int = 2048, bins: TableBins | None = None,
+                             max_elems: int = 1 << 24) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `raster_flows_table`: every tile tests its kept table
+    entries in table order, `max_elems` (tile, entry, pixel) triples at a time.
+    On equal depth the first entry in table order wins: `min` takes the first
+    minimum inside a chunk, and only a strictly smaller depth replaces the best
+    across chunks."""
+    _check_table_inputs(face_verts, size)
+    _check_table_aux(face_verts, aux_pts)
+    T, F = face_verts.shape[0], face_verts.shape[1]
+    dev = face_verts.device
+    if bins is None:
+        bins = bin_faces_table(face_verts, size, k)
+    geom, _ = face_geometry(face_verts)  # (T, F, 16)
+    px, py = _table_pixel_centres(size, dev)  # (n_tiles, P)
+    n_tiles, P = px.shape
+    step = max(1, max_elems // (n_tiles * P))
+    eps = 2.0 / size
+    px3, py3 = px[:, None, :], py[:, None, :]
+    fims, wims = [], []
+    for t in range(T):
+        kept = bins.kept[t].long()
+        best_z = torch.full((n_tiles, P), float("inf"), device=dev)
+        best_id = torch.full((n_tiles, P), -1, dtype=torch.int32, device=dev)
+        best_w = torch.zeros((n_tiles, P, 3), device=dev)
+        for c0 in range(0, int(kept.max()) if kept.numel() else 0, step):
+            ids = bins.ids[t, :, c0:c0 + step].long()  # (n_tiles, C)
+            live = (torch.arange(c0, c0 + ids.shape[1], device=dev)[None] < kept[:, None])
+            g = geom[t][ids.clamp(min=0)][..., None]  # (n_tiles, C, 16, 1)
+            w = [table_bary(g[:, :, 3 * i], g[:, :, 3 * i + 1], g[:, :, 3 * i + 2], px3, py3)
+                 for i in range(3)]  # 3 x (n_tiles, C, P)
+            inside = (w[0] >= -1e-6) & (w[1] >= -1e-6) & (w[2] >= -1e-6)
+            in_bbox = ((px3 >= g[:, :, 12] - eps) & (px3 <= g[:, :, 13] + eps)
+                       & (py3 >= g[:, :, 14] - eps) & (py3 <= g[:, :, 15] + eps))
+            depth = (w[0] * g[:, :, 9] + w[1] * g[:, :, 10]) + w[2] * g[:, :, 11]
+            ok = inside & in_bbox & live[..., None] & (depth > rz.NEAR) & (depth < rz.FAR)
+            depth = torch.where(ok, depth, torch.full_like(depth, float("inf")))
+            cz, arg = depth.min(dim=1)  # first minimum in table order
+            take = cz < best_z
+            best_z = torch.where(take, cz, best_z)
+            best_id = torch.where(take, torch.gather(ids, 1, arg).to(torch.int32), best_id)
+            cw = torch.stack([torch.gather(wi, 1, arg[:, None]).squeeze(1) for wi in w], -1)
+            best_w = torch.where(take[..., None], cw, best_w)
+        fims.append(best_id)
+        wims.append(best_w)
+    gy, gx = size // TABLE_TILE_H, size // TABLE_TILE_W
+
+    def untile(a):  # (T, n_tiles, P, ...) -> (T, S, S, ...)
+        tail = tuple(a.shape[3:])
+        a = a.reshape((T, gy, gx, TABLE_TILE_H, TABLE_TILE_W) + tail)
+        return a.transpose(2, 3).reshape((T, size, size) + tail)
+
+    fim, wim = untile(torch.stack(fims)), untile(torch.stack(wims))
+    J = aux_pts.shape[0]
+    flows = [rz.cal_bc_transform(aux_pts[j][None].expand(T, F, 3, 2), fim, wim) for j in range(J)]
+    return fim, torch.stack(flows, dim=3)
+
+
+def raster_flows_table(face_verts: torch.Tensor, aux_pts: torch.Tensor, size: int,
+                       k: int = 2048, with_stats: bool = False):
+    """Batched rasterize + flows over nearest-first k-capacity tile tables:
+    the `IPERCORE_CSR_RASTER=0` route of `make_frame_inputs`.
+
+    Args:
+        face_verts: (T, F, 3, 3) f32 projected target-pose faces.
+        aux_pts: (J, F, 3, 2) f32 coordinate sets shared by the batch (the
+            JAX kernel has no per-frame form; a (T, J, F, 3, 2) aux raises).
+        size: S, a multiple of 128.
+        k: faces kept per 8x128 tile; beyond it the farthest are dropped.
+
+    Returns:
+        fim (T, S, S) int32 (-1 background), flows (T, S, S, J, 2) f32
+        (FLOW_SENTINEL on background) [, stats with max_tile_load,
+        n_overflow_tiles, total_entries].
+    """
+    _check_table_inputs(face_verts, size)
+    J = _check_table_aux(face_verts, aux_pts)
+    bins = bin_faces_table(face_verts, size, k, with_stats)
+    if not use_kernel(face_verts):
+        fim, flows = raster_flows_table_plain(face_verts, aux_pts, size, k, bins)
+    else:
+        geom, _ = face_geometry(face_verts.contiguous())
+        fim, flows = launch_raster_flows_table(geom, bins, aux_pts.contiguous(), size, J)
+    return (fim, flows, bins.stats) if with_stats else (fim, flows)
+
+
+def _table_lib() -> ctypes.CDLL:
+    lib = cuda_build.load_library("raster_table")
+    if not getattr(lib, "_ipercore_ready", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.raster_table_tile_shape.argtypes = []
+        lib.raster_table_tile_shape.restype = i
+        lib.raster_flows_table_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p]
+        lib.raster_flows_table_launch.restype = i
+        if lib.raster_table_tile_shape() != TABLE_TILE_H * 1000 + TABLE_TILE_W:
+            raise RuntimeError("csrc/raster_table.cu and rasterizer_cuda.py disagree on the tile")
+        lib._ipercore_ready = True
+    return lib
+
+
+def launch_raster_flows_table(geom: torch.Tensor, bins: TableBins, aux: torch.Tensor,
+                              size: int, J: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Allocate the outputs and launch the table kernel (the one place where
+    it is launched and counted). geom (T, F, 16) and aux (J, F, 3, 2) must be
+    contiguous f32 on the GPU."""
+    T, F = geom.shape[0], geom.shape[1]
+    k = bins.ids.shape[-1]
+    dev = geom.device
+    fim = torch.empty((T, size, size), dtype=torch.int32, device=dev)
+    flows = torch.empty((T, size, size, J, 2), dtype=torch.float32, device=dev)
+    ids, kept = bins.ids.contiguous(), bins.kept.contiguous()
+    err = _table_lib().raster_flows_table_launch(
+        geom.data_ptr(), ids.data_ptr(), kept.data_ptr(), aux.data_ptr(), T, F, size, J, k,
+        fim.data_ptr(), flows.data_ptr(), _stream())
+    cuda_build.check_launch(err, "raster_flows_table")
+    raster_flows_table.launches += 1
+    return fim, flows
+
+
+raster_flows_table.launches = 0

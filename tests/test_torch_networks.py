@@ -275,5 +275,5 @@ def test_other_generators_name_a_later_slice(name):
 def test_unknown_generator_raises_key_error():
     with pytest.raises(KeyError):
         tbuild("NoSuchNet", NARROW_CFG, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tbuild("AttLWB-SPADE", NARROW_CFG, temporal=True, device="cpu")
+    with pytest.raises(KeyError):  # also when temporal (a port of its own since slice 2)
+        tbuild("NoSuchNet", NARROW_CFG, temporal=True, device="cpu")

@@ -95,6 +95,11 @@ ENTRY_POINTS = [
     ("ipercore_tpu_torch.models.mesh", "load_assets"),
     ("ipercore_tpu_torch.models.networks", "build_generator"),
     ("ipercore_tpu_torch.services.run_imitator", "imitate_sequence"),
+    ("ipercore_tpu_torch.models.smpl", "resolve_body_model"),
+    ("ipercore_tpu_torch.services.run_imitator", "build_runtime"),
+    ("ipercore_tpu_torch.services.run_imitator", "imitate"),
+    ("ipercore_tpu_torch.services.run_viewer", "novel_view"),
+    ("ipercore_tpu_torch.services.run_swapper", "swap"),
 ]
 
 
@@ -109,14 +114,16 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
         raise AssertionError(f"a CPU tensor reached the build of {name}")
 
     monkeypatch.setattr(cuda_build, "load_library", no_build)
-    before = (trc.raster_flows.launches, trc.raster_fim.launches, tsc.grid_sample_nhwc.launches)
+    wrappers = (trc.raster_flows, trc.raster_fim, trc.raster_flows_table, tsc.grid_sample_nhwc)
+    before = tuple(w.launches for w in wrappers)
     fv = torch.rand(1, 6, 3, 3) * 2 - 1
     fv[..., 2] += 2
     trc.raster_flows(fv, torch.rand(2, 6, 3, 2), 16)
     trc.raster_fim(fv, 16)
+    trc.raster_flows_table(fv, torch.rand(2, 6, 3, 2), 128)
     tsc.grid_sample_nhwc(torch.rand(1, 4, 4, 3), torch.rand(1, 5, 5, 2) * 2 - 1)
-    after = (trc.raster_flows.launches, trc.raster_fim.launches, tsc.grid_sample_nhwc.launches)
-    assert before == after == (0, 0, 0) and all(isinstance(c, int) for c in after)
+    after = tuple(w.launches for w in wrappers)
+    assert before == after == (0, 0, 0, 0) and all(isinstance(c, int) for c in after)
 
 
 def test_dispatch_sends_cuda_tensors_to_the_kernel():
