@@ -23,10 +23,12 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -157,7 +159,9 @@ def geometry_inputs(model, assets, device):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def raster_agreement(fim_k, fim_p, val_k, val_p, what: str) -> float:
+def raster_agreement(fim_k, fim_p, val_k, val_p, what: str, bit_equal: bool = False) -> float:
+    """fim agreement and the largest difference of flows or wim, held to the
+    outer thresholds and, with `bit_equal`, to exact equality."""
     agree = (fim_k == fim_p)
     frac = float(agree.float().mean())
     err_all = float((val_k - val_p).abs().max())
@@ -166,7 +170,128 @@ def raster_agreement(fim_k, fim_p, val_k, val_p, what: str) -> float:
     check(frac >= 0.999, f"{what}: fim agreement {frac} < 0.999")
     check(err_all < 1e-2, f"{what}: max abs error {err_all} >= 1e-2 over all pixels")
     check(err_same < 1e-4, f"{what}: max abs error {err_same} >= 1e-4 where fim agrees")
+    if bit_equal:
+        check(frac == 1.0 and err_all == 0.0,
+              f"{what}: not bit-equal to the plain version (fim agreement {frac}, max abs error {err_all})")
     return err_all
+
+
+def binning_check(face_verts, size: int, what: str) -> dict:
+    """The device binning against its plain version on the same faces: counts,
+    segment starts, work items, wide counts, stats and the valid faces'
+    geometry rows (bit for bit) equal; every tile's list and every wide list
+    equal as sorted sets; the entries are every (tile, face) pair that a valid
+    face's padded box touches, counted face by face. Returns the stats."""
+    from ipercore_tpu_torch.ops import rasterizer as rz
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+
+    plan = rc.prepare_raster(face_verts, size)
+    ref = rc.prepare_raster_plain(face_verts, size)
+    for name in ("counts", "seg", "items", "wide_count"):
+        check(torch.equal(getattr(plan, name), getattr(ref, name)), f"{what}: binning {name} differ")
+    stats = rc.plan_stats(plan)
+    check(stats == rc.plan_stats(ref), f"{what}: binning stats {stats} != plain {rc.plan_stats(ref)}")
+    _, valid = rz._face_bary_matrices(face_verts)
+    check(torch.equal(plan.geom.view(torch.int32)[valid], ref.geom.view(torch.int32)[valid]),
+          f"{what}: geometry rows of valid faces differ from face_geometry")
+
+    def listed(p):  # sorted keys tile * F + face id of every listed entry
+        F = face_verts.shape[1]
+        counts = p.counts.long()
+        tile = torch.repeat_interleave(torch.arange(counts.numel(), device=counts.device), counts)
+        first = torch.cumsum(counts, 0) - counts
+        slot = p.seg.long()[tile] + torch.arange(tile.numel(), device=tile.device) - first[tile]
+        return torch.sort(tile * F + p.ids.long()[slot]).values
+
+    def wide(p):
+        F = p.wide_ids.shape[1]
+        live = torch.arange(F, device=p.wide_ids.device)[None] < p.wide_count[:, None]
+        return torch.sort(torch.where(live, p.wide_ids, F), dim=1).values
+
+    check(torch.equal(listed(plan), listed(ref)), f"{what}: a tile's list differs from the plain one")
+    check(torch.equal(wide(plan), wide(ref)), f"{what}: a wide list differs from the plain one")
+    want = tiles_touched(face_verts, size)
+    check(stats["total_entries"] == want, f"{what}: binning holds {stats['total_entries']} "
+                                          f"(tile, face) pairs, faces touch {want}")
+    return stats
+
+
+def tile_loads(plan) -> dict:
+    """Distribution of the faces each 16x16 tile walks (its list + its
+    frame's wide list)."""
+    T = plan.wide_count.numel()
+    load = (plan.counts.reshape(T, -1) + plan.wide_count[:, None]).double().reshape(-1)
+    return {"tiles": load.numel(), "max": int(load.max()), "mean": float(load.mean()),
+            "p99": float(torch.quantile(load, 0.99)), "empty_share": float((load == 0).double().mean())}
+
+
+def kernel_times(fn, reps: int = 1) -> list:
+    """(device microseconds per call, name) of every kernel that `reps` calls of
+    `fn()` launch, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            out.append((us / reps, ev.key))
+    return out
+
+
+def device_us_by_kernel(fn, reps: int = 5) -> dict:
+    """Device microseconds per `fn()` call by kernel, after a warm-up call;
+    K1/K3's kernels by their short names."""
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for us, key in kernel_times(fn, reps):
+        m = re.search(r"raster_\w+_kernel(<\w+>)?", key)
+        name = m.group(0) if m else key[:40]
+        out[name] = out.get(name, 0.0) + us
+    return out
+
+
+def host_syncs(fn) -> int:
+    """Host syncs that one `fn()` makes, counted by torch's sync debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def check_no_host_sync(fn, what: str) -> None:
+    """`fn()` runs under sync debug mode "error", which raises on a host sync."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{what} made a host sync: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def wide_scene(face_verts):
+    """Two frames of the chunk with faces 5 and 40 replaced by one coplanar
+    triangle in front of the body, spanning far more than E_CAP tiles: both
+    go onto the wide list, face 5 must win their pixels."""
+    fv = face_verts[:2].clone()
+    big = torch.tensor([[-0.6, -0.5, 1.0], [0.5, -0.6, 1.0], [0.0, 0.7, 1.0]], device=fv.device)
+    fv[:, 5] = big
+    fv[:, 40] = big
+    return fv.contiguous()
 
 
 def table_checks(face_verts, k: int) -> None:
@@ -215,10 +340,10 @@ def kernel_checks(model, assets, device) -> dict:
     fim, flows, stats = rc.raster_flows(tgt_fv, aux, SIZE, with_stats=True)
     torch.cuda.synchronize()
     (fim_p, flows_p), plain_ms = once_ms(lambda: rc.raster_flows_plain(tgt_fv, aux, SIZE))
-    err = raster_agreement(fim, fim_p, flows, flows_p, "raster_flows")
-    check(stats["total_entries"] == tiles_touched(tgt_fv, SIZE),
-          "raster_flows: the tile lists do not hold every (tile, face) pair")
+    err = raster_agreement(fim, fim_p, flows, flows_p, "raster_flows", bit_equal=True)
+    check(binning_check(tgt_fv, SIZE, "raster_flows") == stats, "raster_flows: stats differ")
     plan = rc.prepare_raster(tgt_fv, SIZE)
+    check_no_host_sync(lambda: rc.raster_flows(tgt_fv, aux, SIZE), "raster_flows")
     b_ms, b_by = bound(nbytes(tgt_fv, aux, fim, flows), raster_flops(tgt_fv, SIZE, flows.numel()))
     results["raster_flows_csr"] = {
         "route": "cuda", "source": "ipercore_tpu_torch/csrc/raster.cu", "max_abs_err": err,
@@ -226,6 +351,10 @@ def kernel_checks(model, assets, device) -> dict:
         "wrapper_ms": cuda_ms(lambda: rc.raster_flows(tgt_fv, aux, SIZE)),
         "binning_ms": cuda_ms(lambda: rc.prepare_raster(tgt_fv, SIZE)),
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "host_syncs": host_syncs(lambda: rc.raster_flows(tgt_fv, aux, SIZE)),
+        "host_syncs_with_stats": host_syncs(lambda: rc.raster_flows(tgt_fv, aux, SIZE, with_stats=True)),
+        "tile_loads": tile_loads(plan),
+        "device_us": device_us_by_kernel(lambda: rc.raster_flows(tgt_fv, aux, SIZE)),
         "shape": f"T={T} F={F} S={SIZE} J={J}", "stats": stats,
         "fim_agreement": float((fim == fim_p).float().mean()),
     }
@@ -235,11 +364,24 @@ def kernel_checks(model, assets, device) -> dict:
     aux_t = (aux[None] * scale[:, None, None, None, None]).contiguous()
     fim_t, flows_t = rc.raster_flows(tgt_fv, aux_t, SIZE)
     fim_p, flows_p = rc.raster_flows_plain(tgt_fv, aux_t, SIZE)
-    err_t = raster_agreement(fim_t, fim_p, flows_t, flows_p, "raster_flows/per-frame aux")
+    err_t = raster_agreement(fim_t, fim_p, flows_t, flows_p, "raster_flows/per-frame aux", bit_equal=True)
     check(float((flows_t[1:] - flows[1:]).abs().max()) > 1e-3,
           "raster_flows: per-frame aux gave the flows of the shared aux")
-    results["raster_flows_csr"]["max_abs_err"] = max(err, err_t)
     del flows_p, fim_p, flows_t, fim_t
+    # faces on the wide list, K1 and K3, with a tie between two of them
+    wide_fv = wide_scene(tgt_fv)
+    wide_stats = binning_check(wide_fv, SIZE, "wide scene")
+    check(wide_stats["wide_faces"] == 4, f"wide scene: {wide_stats['wide_faces']} wide faces, want 4")
+    fim_w, flows_w = rc.raster_flows(wide_fv, aux, SIZE)
+    fim_p, flows_p = rc.raster_flows_plain(wide_fv, aux, SIZE)
+    err_w = raster_agreement(fim_w, fim_p, flows_w, flows_p, "raster_flows/wide scene", bit_equal=True)
+    check(bool((fim_w == 5).any()) and not bool((fim_w == 40).any()), "wide scene: face 5 does not win the tie")
+    out_w, ref_w = rc.raster_fim(wide_fv, SIZE), rc.raster_fim_plain(wide_fv, SIZE)
+    err_w3 = raster_agreement(out_w.fim, ref_w.fim, out_w.wim, ref_w.wim, "raster_fim/wide scene",
+                              bit_equal=True)
+    results["raster_flows_csr"]["max_abs_err"] = max(err, err_t, err_w)
+    results["raster_flows_csr"]["wide_scene_stats"] = wide_stats
+    del fim_p, flows_p, fim_w, flows_w, out_w, ref_w
 
     # K4: the table route at the same chunk; k = 2048 overflows a few tiles,
     # k = 256 most of them ----------------------------------------------------
@@ -276,14 +418,15 @@ def kernel_checks(model, assets, device) -> dict:
 
     # K3: source frames (N = NS) and the UV template (N = 1) ---------------
     uv_fv = torch.cat([assets.f2uvs, torch.ones_like(assets.f2uvs[..., :1])], dim=-1)[None].contiguous()
-    worst, agree = 0.0, 1.0
+    worst, agree, loads3 = err_w3, 1.0, {}
     for name, fv in (("source", src_fv), ("uv_template", uv_fv)):
         out, st = rc.raster_fim(fv, SIZE, with_stats=True)
         ref = rc.raster_fim_plain(fv, SIZE)
-        worst = max(worst, raster_agreement(out.fim, ref.fim, out.wim, ref.wim, f"raster_fim/{name}"))
+        worst = max(worst, raster_agreement(out.fim, ref.fim, out.wim, ref.wim, f"raster_fim/{name}",
+                                            bit_equal=True))
         agree = min(agree, float((out.fim == ref.fim).float().mean()))
-        check(st["total_entries"] == tiles_touched(fv, SIZE),
-              f"raster_fim/{name}: the tile lists do not hold every (tile, face) pair")
+        check(binning_check(fv, SIZE, f"raster_fim/{name}") == st, f"raster_fim/{name}: stats differ")
+        loads3[name] = tile_loads(rc.prepare_raster(fv, SIZE))
     # the JAX K3 keeps 2048 faces per 8x128 tile; the exact-binned raster_fim
     # equals it while no such tile holds more
     k3_loads = {}
@@ -297,6 +440,7 @@ def kernel_checks(model, assets, device) -> dict:
     out, stats3 = rc.raster_fim(src_fv, SIZE, with_stats=True)
     _, plain_ms = once_ms(lambda: rc.raster_fim_plain(src_fv, SIZE))
     plan3 = rc.prepare_raster(src_fv, SIZE)
+    check_no_host_sync(lambda: rc.raster_fim(src_fv, SIZE), "raster_fim")
     b_ms, b_by = bound(nbytes(src_fv, out.fim, out.wim), raster_flops(src_fv, SIZE, out.wim.numel()))
     results["raster_fim"] = {
         "route": "cuda", "source": "ipercore_tpu_torch/csrc/raster.cu", "max_abs_err": worst,
@@ -304,6 +448,10 @@ def kernel_checks(model, assets, device) -> dict:
         "wrapper_ms": cuda_ms(lambda: rc.raster_fim(src_fv, SIZE)),
         "binning_ms": cuda_ms(lambda: rc.prepare_raster(src_fv, SIZE)),
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "host_syncs": host_syncs(lambda: rc.raster_fim(src_fv, SIZE)),
+        "host_syncs_with_stats": host_syncs(lambda: rc.raster_fim(src_fv, SIZE, with_stats=True)),
+        "tile_loads": loads3,
+        "device_us": device_us_by_kernel(lambda: rc.raster_fim(src_fv, SIZE)),
         "shape": f"N={NS} F={F} S={SIZE}", "stats": stats3, "fim_agreement": agree,
         "jax_8x128_tile_loads": k3_loads,
     }
@@ -372,11 +520,19 @@ def tiles_touched(face_verts, size: int) -> int:
 
 
 def counters() -> dict:
-    from ipercore_tpu_torch.ops.rasterizer_cuda import raster_fim, raster_flows, raster_flows_table
+    """Launch counters: the four kernels, and the device binning that K1 and
+    K3 launch before their walk."""
+    from ipercore_tpu_torch.ops.rasterizer_cuda import (
+        prepare_raster,
+        raster_fim,
+        raster_flows,
+        raster_flows_table,
+    )
     from ipercore_tpu_torch.ops.sampling_cuda import grid_sample_nhwc
 
     return {"raster_flows_csr": raster_flows, "grid_sample_nhwc": grid_sample_nhwc,
-            "raster_fim": raster_fim, "raster_flows_table": raster_flows_table}
+            "raster_fim": raster_fim, "raster_flows_table": raster_flows_table,
+            "raster_binning": prepare_raster}
 
 
 def zero_counts() -> None:
@@ -396,23 +552,13 @@ def close_fraction(a, b, tol: float = 1e-3) -> float:
 
 def device_breakdown(fn) -> dict:
     """Device milliseconds of one `fn()` by kind of kernel, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     kinds = {"convolutions": 0.0, "kernels": 0.0, "binning_sort_scan": 0.0, "other": 0.0}
     by_name = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        by_name.append((us / 1e3, ev.key[:70]))
-        name = ev.key.lower()
-        if any(w in name for w in ("raster_tile_kernel", "raster_table_kernel",
-                                   "grid_sample_nhwc_kernel")):
+    for us, key in kernel_times(fn):
+        by_name.append((us / 1e3, key[:70]))
+        name = key.lower()
+        # the hand-written kernels: K1/K3's binning, walk and epilogue, K4, K2
+        if any(w in name for w in ("raster_", "grid_sample_nhwc_kernel")):
             kinds["kernels"] += us
         elif any(w in name for w in ("conv", "cudnn", "gemm", "xmma", "cutlass", "winograd",
                                      "implicit", "nchwtonhwc", "nhwctonchw", "dgrad",
@@ -472,23 +618,19 @@ def main_path(device) -> tuple[dict, dict]:
     for k in ("raster_flows_csr", "grid_sample_nhwc"):
         check(launches[k] >= N_FRAMES // CHUNK, f"{k} launched {launches[k]} times")
     check(launches["raster_flows_table"] == 0, "the CSR route launched the table kernel")
+    check(launches["raster_binning"] == launches["raster_flows_csr"] + launches["raster_fim"],
+          f"the device binning ran {launches['raster_binning']} times for "
+          f"{launches['raster_flows_csr'] + launches['raster_fim']} raster launches")
 
-    # no entry lost on this run's geometry: each chunk's tile lists hold one
-    # entry for every tile that a valid face's padded box touches, counted
-    # here face by face without the sort
+    # no entry lost on this run's geometry: each chunk's device binning equals
+    # the plain one tile by tile and holds every (tile, face) pair that a valid
+    # face's padded box touches, counted face by face
     stats = []
     for i in range(0, N_FRAMES, CHUNK):
         d = smpl_mod.get_details(model, torch.as_tensor(smpls[i:i + CHUNK], device=device))
-        fv = rz.verts_to_faces(rz.project_verts(d["verts"], d["cam"]), model.faces)
-        plan = rc.prepare_raster(fv, SIZE)
-        want = tiles_touched(fv, SIZE)
-        load = plan.seg[1:] - plan.seg[:-1]
-        check(int(plan.seg[-1]) == plan.fids.numel() == plan.stats["total_entries"] == want,
-              f"binning: {plan.fids.numel()} entries in the tile lists, segments end at "
-              f"{int(plan.seg[-1])}, stats say {plan.stats['total_entries']}, faces touch {want}")
-        check(int(load.min()) >= 0 and int(load.max()) == plan.stats["max_tile_load"],
-              "binning: segment starts do not match max_tile_load")
-        stats.append(plan.stats)
+        fv = rz.verts_to_faces(rz.project_verts(d["verts"], d["cam"]), model.faces).contiguous()
+        st = binning_check(fv, SIZE, f"main path chunk {i // CHUNK}")
+        stats.append(dict(st, tile_loads=tile_loads(rc.prepare_raster(fv, SIZE))))
 
     # one chunk again: kernels, then the plain versions forced on the GPU
     batch = torch.as_tensor(smpls[:CHUNK], device=device)
@@ -509,6 +651,7 @@ def main_path(device) -> tuple[dict, dict]:
     seq_s = time.perf_counter() - t0
     chunk_ms = cuda_ms(lambda: imit.synthesize_frames(comp, gen, cache, batch), reps=3, warmup=1)
     breakdown = device_breakdown(lambda: imit.synthesize_frames(comp, gen, cache, batch))
+    syncs = host_syncs(lambda: imit.synthesize_frames(comp, gen, cache, batch))
 
     ctx = {"comp": comp, "gen": gen, "cache": cache, "smpls": smpls, "pred_csr": pred_k}
     return ctx, {
@@ -521,6 +664,7 @@ def main_path(device) -> tuple[dict, dict]:
         "chunk_ms": chunk_ms, "plain_chunk_ms": plain_chunk_ms,
         "device_ms_per_chunk": breakdown,
         "device_idle_share": 1 - breakdown["busy"] / chunk_ms,
+        "host_syncs_per_chunk": syncs,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "kernel_vs_plain_close_fraction": close,
         "frame_min": float(frames.min()), "frame_max": float(frames.max()),

@@ -1,27 +1,29 @@
-"""Hopper raster kernels: wrappers, exact tile binning and plain versions.
+"""Hopper raster kernels: wrappers, tile binning and plain versions.
 
 `raster_flows` replaces the Pallas TPU kernel `_raster_flow_kernel_csr`
 (`ipercore_tpu/ops/rasterizer_pallas.py`, entry `rasterize_flows_pallas_csr`);
 `raster_fim` replaces `_raster_kernel` (entry `rasterize_pallas` /
-`rasterize_pallas_batch`). The device code is `csrc/raster.cu`; see its header
-for the design and for what bounds it on an H100 (output bytes and the
-per-tile face walk are both tens of microseconds at 512^2, so the binning
-below — a few dozen small PyTorch launches and two host syncs — costs more
-than the kernel). `raster_flows_table` replaces `_raster_flow_kernel` (entry
+`rasterize_pallas_batch`). Their device code is `csrc/raster.cu` (the walk and
+the epilogue), fed by the device binning of `csrc/raster_bin.cu`; see the
+headers there for the design and for what bounds it on an H100.
+`raster_flows_table` replaces `_raster_flow_kernel` (entry
 `rasterize_flows_pallas`), the fixed-capacity variant that keeps the JAX
 package's 8x128 tiles and nearest-first tables; its device code is
 `csrc/raster_table.cu` and its section below says why the tile stays.
 
-Binning. As in the JAX package it is ordinary array code outside the kernel,
-shared by both tile shapes (`_bin_entries`): each valid face contributes one
-(tile, face) entry for every tile its padded bounding box touches, entries are
-sorted by `tile * F + key`, and `searchsorted` gives every tile's segment. For
-K1 and K3 the tiles are 16x16, the box is padded by 2 px and the key is the
-face id. Unlike the TPU version it is exact:
-there is no `entries_per_face` cap, no `ncap` and no `top_k` capacity, so
-nothing can be truncated. The `with_stats` contract is kept (`max_span`,
-`total_entries`, `max_tile_load`, `n_overflow_tiles` = 0) so a caller can still
-assert it.
+Binning of K1 and K3 (`prepare_raster`). Each valid face's box, padded by
+2 px, touches an inclusive range of 16x16 tiles. A face whose range holds at
+most `E_CAP` tiles is listed in each of them; a larger face goes onto its
+frame's wide list, which every tile of the frame walks as well. The buffers
+have static sizes, as in the JAX package (`entries_per_face` = 16), but
+nothing is truncated: T*F*E_CAP tile entries, T*F wide ids. On a CUDA tensor
+the binning is three kernels with no host sync and no sort; a tile's list is
+then in no fixed order, which the walk's winner rule (smallest depth, then
+lowest face id) does not see. On a CPU tensor `prepare_raster_plain` builds
+the same layout with PyTorch (lists by face id). The `with_stats` contract is
+kept (`max_span`, `total_entries`, `max_tile_load`, `n_overflow_tiles` = 0,
+and now `listed_entries`, `wide_faces`); the stats stay on the device and are
+read, in one sync, only when a caller asks for them.
 
 A wrapper runs its plain version only for a CPU tensor (or inside
 `dispatch.force_plain()`); for a CUDA tensor it launches the kernel or raises.
@@ -38,22 +40,44 @@ from ipercore_tpu_torch.ops import rasterizer as rz
 from ipercore_tpu_torch.ops.dispatch import use_kernel
 from ipercore_tpu_torch.utils import cuda_build
 
-TILE = 16  # pixels per tile side; must equal TILE in csrc/raster.cu
+# must equal TILE, E_CAP, ITEM in csrc/raster_common.cuh
+TILE = 16  # pixels per tile side
+E_CAP = 16  # tile entries one face may write before it goes onto the wide list
+ITEM = 64  # list entries per work item of the walk
+ZBUF_FRAMES = 8  # frames per pass through the walk's z-buffer
 _BIN_MARGIN_PX = 2.0  # bbox guard is 1 px; one more absorbs rounding in to_px
+STAT_KEYS = ("max_span", "total_entries", "listed_entries", "max_tile_load", "wide_faces")
+
+
+def _check_constants(lib: ctypes.CDLL, fn: str) -> None:
+    got = (ctypes.c_int * 5)()
+    getattr(lib, fn)(got)
+    if tuple(got) != (TILE, E_CAP, ITEM, 16, len(STAT_KEYS)):
+        raise RuntimeError(f"csrc/raster_common.cuh and rasterizer_cuda.py disagree: {tuple(got)}")
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("raster")
     if not getattr(lib, "_ipercore_ready", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.raster_tile_size.argtypes = []
-        lib.raster_tile_size.restype = i
-        lib.raster_flows_launch.argtypes = [p, p, p, p, ll, i, i, i, i, p, p, p]
+        lib.raster_constants.argtypes = [p]
+        lib.raster_flows_launch.argtypes = [p] * 8 + [ll, i, i, i, i, p, i, p, p, p]
         lib.raster_flows_launch.restype = i
-        lib.raster_fim_launch.argtypes = [p, p, p, i, i, i, p, p, p]
+        lib.raster_fim_launch.argtypes = [p] * 7 + [i, i, i, p, i, p, p, p]
         lib.raster_fim_launch.restype = i
-        if lib.raster_tile_size() != TILE:
-            raise RuntimeError("csrc/raster.cu and rasterizer_cuda.py disagree on TILE")
+        _check_constants(lib, "raster_constants")
+        lib._ipercore_ready = True
+    return lib
+
+
+def _bin_lib() -> ctypes.CDLL:
+    lib = cuda_build.load_library("raster_bin")
+    if not getattr(lib, "_ipercore_ready", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.raster_bin_constants.argtypes = [p]
+        lib.raster_bin_launch.argtypes = [p, i, i, i] + [p] * 9
+        lib.raster_bin_launch.restype = i
+        _check_constants(lib, "raster_bin_constants")
         lib._ipercore_ready = True
     return lib
 
@@ -104,41 +128,19 @@ def _bin_entries(tx0: torch.Tensor, tx1: torch.Tensor, ty0: torch.Tensor, ty1: t
     return tiles, sorted_key - tiles * F, seg, span
 
 
-def bin_faces(face_verts: torch.Tensor, valid: torch.Tensor,
-              size: int) -> tuple[torch.Tensor, torch.Tensor, dict]:
-    """Exact sort-based face binning into 16x16 tiles, by face id in a tile.
+def _tile_ranges(face_verts: torch.Tensor, size: int) -> tuple[torch.Tensor, ...]:
+    """Inclusive 16x16 tile ranges (tx0, tx1, ty0, ty1), each (T, F) int64, of
+    the faces' boxes padded by 2 px, in f32 as `csrc/raster_bin.cu` computes
+    them: floor(((v + 1) * S/2 - 0.5 -+ 2) / 16), clipped to the grid."""
+    g = (size + TILE - 1) // TILE
 
-    Args:
-        face_verts: (T, F, 3, 3); valid: (T, F) bool.
-
-    Returns:
-        fids: (E,) int32 face id of every (tile, face) entry, sorted by
-            global tile then face id;
-        seg: (T * n_tiles + 1,) int32 segment starts (tile t of frame f owns
-            `fids[seg[f * n_tiles + t] : seg[f * n_tiles + t + 1]]`);
-        stats: max_span, total_entries, max_tile_load (python ints).
-    """
-    T, F = face_verts.shape[0], face_verts.shape[1]
-    tile = TILE
-    g = (size + tile - 1) // tile
-    x, y = face_verts[..., 0], face_verts[..., 1]
-
-    def tile_range(v):
+    def one_axis(v):
         lo = (v.amin(-1) + 1.0) * (size * 0.5) - 0.5 - _BIN_MARGIN_PX
         hi = (v.amax(-1) + 1.0) * (size * 0.5) - 0.5 + _BIN_MARGIN_PX
-        t0 = torch.floor(lo / tile).clamp(0, g - 1).long()
-        t1 = torch.floor(hi / tile).clamp(0, g - 1).long()
-        return t0, t1
+        return (torch.floor(lo / TILE).clamp(0, g - 1).long(),
+                torch.floor(hi / TILE).clamp(0, g - 1).long())
 
-    tx0, tx1 = tile_range(x)
-    ty0, ty1 = tile_range(y)
-    face_id = torch.arange(F, device=face_verts.device).expand(T, F)
-    _, fids, seg, span = _bin_entries(tx0, tx1, ty0, ty1, valid, g, g * g, face_id)
-    load = seg[1:] - seg[:-1]
-    max_span, max_load = (torch.stack([span.max(), load.max()]).tolist()
-                          if span.numel() else (0, 0))  # host sync: the stats
-    stats = {"max_span": max_span, "total_entries": fids.numel(), "max_tile_load": max_load}
-    return fids.to(torch.int32).contiguous(), seg.to(torch.int32).contiguous(), stats
+    return one_axis(face_verts[..., 0]) + one_axis(face_verts[..., 1])
 
 
 def _check_faces(face_verts: torch.Tensor) -> None:
@@ -153,21 +155,116 @@ def _stream() -> int:
 
 
 class RasterPlan(NamedTuple):
-    """What a raster launch reads besides its caller's tensors: per-face
-    geometry rows (T, F, 16), the sorted entries' face ids, the tiles' segment
-    starts and the binning stats."""
+    """The binning of T frames into 16x16 tiles, n_tiles = g*g, g = ceil(S/16).
+
+    geom: (T, F, 16) f32 face rows [M 9 | z 3 | bbox 4];
+    counts: (T * n_tiles,) int32 faces listed per tile;
+    seg: (T * n_tiles,) int32 start of each tile's list in `ids`; frame f's
+        lists lie in its region [f*F*E_CAP, (f+1)*F*E_CAP);
+    ids: (T * F * E_CAP,) int32; tile k's list is ids[seg[k] : seg[k] + counts[k]]
+        (by face id from the plain version, in no fixed order from the
+        kernel); the other slots are unspecified;
+    wide_ids: (T, F) int32, frame f's wide list in its first wide_count[f]
+        slots (likewise ordered or not);
+    wide_count: (T,) int32 faces whose padded box spans more than E_CAP
+        tiles; every tile of the frame walks them too;
+    items: (T, n_tiles + 1) int32 first work item of each tile and, last, the
+        frame's item count: tile t has ceil((counts + wide_count) / ITEM) items;
+    stats: (5,) int32 on the device, in the order of STAT_KEYS
+        (`plan_stats` reads them).
+    """
 
     geom: torch.Tensor
-    fids: torch.Tensor
+    counts: torch.Tensor
     seg: torch.Tensor
-    stats: dict
+    ids: torch.Tensor
+    wide_ids: torch.Tensor
+    wide_count: torch.Tensor
+    items: torch.Tensor
+    stats: torch.Tensor
+
+
+def plan_stats(plan: RasterPlan) -> dict:
+    """The binning stats as python ints: one host sync."""
+    return dict(zip(STAT_KEYS, plan.stats.tolist()), n_overflow_tiles=0)
+
+
+def prepare_raster_plain(face_verts: torch.Tensor, size: int) -> RasterPlan:
+    """Plain version of `prepare_raster`: the same layout from the exact
+    sort-based binning, lists and wide lists by face id. Runs on the tensor's
+    device; one host sync sizes the entries."""
+    T, F = face_verts.shape[0], face_verts.shape[1]
+    dev = face_verts.device
+    g = (size + TILE - 1) // TILE
+    n_tiles = g * g
+    geom, valid = face_geometry(face_verts)
+    tx0, tx1, ty0, ty1 = _tile_ranges(face_verts, size)
+    span = torch.where(valid, (tx1 - tx0 + 1) * (ty1 - ty0 + 1), torch.zeros_like(tx0))
+    wide = span > E_CAP
+    face_id = torch.arange(F, device=dev).expand(T, F)
+    tiles, fids, seg_exact, _ = _bin_entries(tx0, tx1, ty0, ty1, valid & ~wide, g, n_tiles, face_id)
+    counts = (seg_exact[1:] - seg_exact[:-1]).reshape(T, n_tiles)
+    seg = torch.arange(T, device=dev)[:, None] * (F * E_CAP) + torch.cumsum(counts, 1) - counts
+    ids = torch.full((T * F * E_CAP,), -1, dtype=torch.int32, device=dev)
+    slot = seg.reshape(-1)[tiles] + torch.arange(tiles.numel(), device=dev) - seg_exact[tiles]
+    ids[slot] = fids.to(torch.int32)
+    wide_count = wide.sum(1)
+    wide_ids = torch.sort(torch.where(wide, face_id, F), dim=1).values
+    wide_ids = torch.where(wide_ids < F, wide_ids, -1)
+    load = counts + wide_count[:, None]
+    items = torch.cat([torch.zeros_like(load[:, :1]), torch.cumsum((load + ITEM - 1) // ITEM, 1)], 1)
+    stats = (torch.stack([span.max(), span.sum(), counts.sum(), load.max(), wide_count.sum()])
+             if span.numel() else torch.zeros(len(STAT_KEYS), dtype=torch.int64, device=dev))
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    return RasterPlan(geom, i32(counts.reshape(-1)), i32(seg.reshape(-1)), ids, i32(wide_ids),
+                      i32(wide_count), i32(items), i32(stats))
 
 
 def prepare_raster(face_verts: torch.Tensor, size: int) -> RasterPlan:
-    """Everything before the launch: face geometry and exact binning."""
-    geom, valid = face_geometry(face_verts)
-    fids, seg, stats = bin_faces(face_verts, valid, size)
-    return RasterPlan(geom, fids, seg, dict(stats, n_overflow_tiles=0))
+    """Everything before the walk: face geometry and tile binning. On a CUDA
+    tensor three kernels of `csrc/raster_bin.cu`, no host sync; on a CPU
+    tensor the plain version."""
+    _check_faces(face_verts)
+    if not use_kernel(face_verts):
+        return prepare_raster_plain(face_verts, size)
+    face_verts = face_verts.contiguous()
+    T, F = face_verts.shape[0], face_verts.shape[1]
+    if T * F * E_CAP >= 2 ** 31:
+        raise ValueError(f"T*F*E_CAP = {T * F * E_CAP} entries do not fit int32 offsets")
+    g = (size + TILE - 1) // TILE
+    n_tiles = g * g
+    dev = face_verts.device
+    geom = torch.empty((T, F, 16), dtype=torch.float32, device=dev)
+    sizes = (T * F * 4, T * n_tiles + 2 * T + len(STAT_KEYS), T * n_tiles, T * n_tiles,
+             T * (n_tiles + 1), T * F * E_CAP, T * F)
+    # frange first: its int4 rows need the buffer's 16-byte alignment
+    frange, zeroed, seg, cursor, items, ids, wide_ids = torch.split(
+        torch.empty(sum(sizes), dtype=torch.int32, device=dev), sizes)
+    err = _bin_lib().raster_bin_launch(
+        face_verts.data_ptr(), T, F, size, geom.data_ptr(), frange.data_ptr(), zeroed.data_ptr(),
+        seg.data_ptr(), cursor.data_ptr(), items.data_ptr(), ids.data_ptr(), wide_ids.data_ptr(),
+        _stream())
+    cuda_build.check_launch(err, "raster binning")
+    prepare_raster.launches += 1
+    n_counts = T * n_tiles
+    return RasterPlan(geom, zeroed[:n_counts], seg, ids, wide_ids.view(T, F),
+                      zeroed[n_counts:n_counts + T], items.view(T, n_tiles + 1),
+                      zeroed[-len(STAT_KEYS):])
+
+
+prepare_raster.launches = 0
+
+
+def _zbuf(T: int, size: int, device) -> tuple[torch.Tensor, int]:
+    """The walk's scratch: a z-buffer of min(T, ZBUF_FRAMES) frames of 64-bit
+    keys, then one work counter per frame."""
+    frames = max(1, min(T, ZBUF_FRAMES))
+    return torch.empty(frames * (size * size + 1), dtype=torch.int64, device=device), frames
+
+
+def _plan_ptrs(plan: RasterPlan) -> tuple[int, ...]:
+    return tuple(a.data_ptr() for a in (plan.geom, plan.counts, plan.seg, plan.items, plan.ids,
+                                        plan.wide_ids, plan.wide_count))
 
 
 # --------------------------------------------------------------------------
@@ -222,28 +319,28 @@ def raster_flows(face_verts: torch.Tensor, aux_pts: torch.Tensor, size: int,
     if not use_kernel(face_verts):
         fim, flows = raster_flows_plain(face_verts, aux_pts, size, chunk)
         if with_stats:
-            return fim, flows, prepare_raster(face_verts, size).stats
+            return fim, flows, plan_stats(prepare_raster(face_verts, size))
         return fim, flows
 
-    face_verts = face_verts.contiguous()
     plan = prepare_raster(face_verts, size)
     fim, flows = launch_raster_flows(plan, aux_pts.contiguous(), T, F, size, J, per_frame)
     if with_stats:
-        return fim, flows, plan.stats
+        return fim, flows, plan_stats(plan)
     return fim, flows
 
 
 def launch_raster_flows(plan: RasterPlan, aux: torch.Tensor, T: int, F: int, size: int,
                         J: int, per_frame: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the outputs and launch the fused kernel (the one place where
-    it is launched and counted). `aux` must be contiguous f32 on the GPU."""
+    """Allocate the outputs and launch the walk and the flow epilogue (the one
+    place where they are launched and counted). `aux` must be contiguous f32
+    on the GPU."""
     dev = plan.geom.device
     fim = torch.empty((T, size, size), dtype=torch.int32, device=dev)
     flows = torch.empty((T, size, size, J, 2), dtype=torch.float32, device=dev)
+    zbuf, zb_frames = _zbuf(T, size, dev)
     err = _lib().raster_flows_launch(
-        plan.geom.data_ptr(), plan.fids.data_ptr(), plan.seg.data_ptr(), aux.data_ptr(),
-        J * F * 6 if per_frame else 0, T, F, size, J,
-        fim.data_ptr(), flows.data_ptr(), _stream())
+        *_plan_ptrs(plan), aux.data_ptr(), J * F * 6 if per_frame else 0, T, F, size, J,
+        zbuf.data_ptr(), zb_frames, fim.data_ptr(), flows.data_ptr(), _stream())
     cuda_build.check_launch(err, "raster_flows")
     raster_flows.launches += 1
     return fim, flows
@@ -281,26 +378,26 @@ def raster_fim(face_verts: torch.Tensor, size: int, with_stats: bool = False,
     if not use_kernel(face_verts):
         out = raster_fim_plain(face_verts, size, chunk)
         if with_stats:
-            return out, prepare_raster(face_verts, size).stats
+            return out, plan_stats(prepare_raster(face_verts, size))
         return out
 
-    face_verts = face_verts.contiguous()
     plan = prepare_raster(face_verts, size)
     out = launch_raster_fim(plan, N, F, size)
     if with_stats:
-        return out, plan.stats
+        return out, plan_stats(plan)
     return out
 
 
 def launch_raster_fim(plan: RasterPlan, N: int, F: int, size: int) -> rz.RasterOutput:
-    """Allocate the outputs and launch the fim/wim kernel (the one place
-    where it is launched and counted)."""
+    """Allocate the outputs and launch the walk and the fim/wim epilogue (the
+    one place where they are launched and counted)."""
     dev = plan.geom.device
     fim = torch.empty((N, size, size), dtype=torch.int32, device=dev)
     wim = torch.empty((N, size, size, 3), dtype=torch.float32, device=dev)
+    zbuf, zb_frames = _zbuf(N, size, dev)
     err = _lib().raster_fim_launch(
-        plan.geom.data_ptr(), plan.fids.data_ptr(), plan.seg.data_ptr(), N, F, size,
-        fim.data_ptr(), wim.data_ptr(), _stream())
+        *_plan_ptrs(plan), N, F, size, zbuf.data_ptr(), zb_frames, fim.data_ptr(), wim.data_ptr(),
+        _stream())
     cuda_build.check_launch(err, "raster_fim")
     raster_fim.launches += 1
     return rz.RasterOutput(fim=fim, wim=wim)

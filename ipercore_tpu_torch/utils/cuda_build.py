@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -22,7 +23,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "--shared", "-Xcompiler", "-fPIC")
-SOURCES = ("raster", "raster_table", "grid_sample")
+SOURCES = ("raster_bin", "raster", "raster_table", "grid_sample")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -41,11 +43,28 @@ def find_nvcc() -> str:
         "ipercore_tpu_torch can only be built on a machine with the CUDA toolkit")
 
 
+def _included(path: str, seen: list[str]) -> list[str]:
+    """`path` and every file under `csrc/` that it includes with quotes,
+    directly or through another such file, each once."""
+    if path not in seen:
+        seen.append(path)
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                dep = os.path.join(os.path.dirname(path), inc.decode())
+                if os.path.isfile(dep):
+                    _included(dep, seen)
+    return seen
+
+
 def _paths(name: str) -> tuple[str, str]:
+    """The source and its library, named by a hash of the source, every
+    header it includes from `csrc/` and the flags: an edited header rebuilds."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _included(src, []):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str) -> tuple[subprocess.Popen, str, str] | None:

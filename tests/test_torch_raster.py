@@ -253,23 +253,26 @@ def test_raster_wrappers_reject_bad_input():
 
 @pytest.mark.parametrize("size", [64, 100])
 def test_binning_covers_every_visible_face(size):
-    """Every face the plain raster shows in a tile is in that tile's list, the
-    lists are sorted by face id, and no entry is lost (sizes that are not a
-    tile multiple included)."""
+    """Every face the plain raster shows in a tile is in that tile's list or
+    on its frame's wide list, the lists are sorted by face id, and no entry is
+    lost (sizes that are not a tile multiple included)."""
     fv = t(body_face_verts(2, seed=7))
     plan = trc.prepare_raster(fv, size)
-    fids, seg = n(plan.fids), n(plan.seg)
+    counts, seg, ids = n(plan.counts), n(plan.seg), n(plan.ids)
     g = (size + trc.TILE - 1) // trc.TILE
-    assert seg.shape == (2 * g * g + 1,) and seg[-1] == len(fids) == plan.stats["total_entries"]
+    assert seg.shape == counts.shape == (2 * g * g,) and ids.shape == (2 * fv.shape[1] * trc.E_CAP,)
+    stats = trc.plan_stats(plan)
+    assert counts.sum() == stats["listed_entries"] <= stats["total_entries"]
     for f in range(2):
         fim = n(trz.rasterize(fv[f], size).fim)
+        wide = set(n(plan.wide_ids)[f, :n(plan.wide_count)[f]].tolist())
         for ty in range(g):
             for tx in range(g):
                 k = f * g * g + ty * g + tx
-                lst = fids[seg[k]:seg[k + 1]]
+                lst = ids[seg[k]:seg[k] + counts[k]]
                 assert (np.diff(lst) > 0).all()
                 seen = set(np.unique(fim[ty * 16:(ty + 1) * 16, tx * 16:(tx + 1) * 16])) - {-1}
-                assert seen <= set(lst.tolist())
+                assert seen <= set(lst.tolist()) | wide
     assert plan.geom.shape == (2, fv.shape[1], 16)
 
 
