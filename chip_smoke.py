@@ -5,8 +5,9 @@
     python3 chip_smoke.py --only kernels  # build + kernel checks only, no ok line
 
 Builds the CUDA kernels of `ipercore_tpu_torch` from the sources in this
-checkout, holds each against its plain PyTorch version on the GPU at the
-shapes the main path gives it, then drives the main path (full-width
+checkout, holds each against its plain PyTorch version (and each device
+binning against its plain binning) on the GPU at the shapes the main path
+gives it, then drives the main path (full-width
 AttLWB-SPADE with seeded random weights, synthetic body model, 512^2, two
 source views, 16 target frames in chunks of 8) through the entry points a
 user calls and checks its output. Then, each with the launch counts set to 0
@@ -225,6 +226,10 @@ def tile_loads(plan) -> dict:
             "p99": float(torch.quantile(load, 0.99)), "empty_share": float((load == 0).double().mean())}
 
 
+# the names of the hand-written kernels (csrc/*.cu)
+HAND_WRITTEN = re.compile(r"(raster|table|grid_sample|repack)_\w+_kernel(<\w+>)?")
+
+
 def kernel_times(fn, reps: int = 1) -> list:
     """(device microseconds per call, name) of every kernel that `reps` calls of
     `fn()` launch, from torch.profiler."""
@@ -246,12 +251,12 @@ def kernel_times(fn, reps: int = 1) -> list:
 
 def device_us_by_kernel(fn, reps: int = 5) -> dict:
     """Device microseconds per `fn()` call by kernel, after a warm-up call;
-    K1/K3's kernels by their short names."""
+    the hand-written kernels by their short names."""
     fn()
     torch.cuda.synchronize()
     out = {}
     for us, key in kernel_times(fn, reps):
-        m = re.search(r"raster_\w+_kernel(<\w+>)?", key)
+        m = HAND_WRITTEN.search(key)
         name = m.group(0) if m else key[:40]
         out[name] = out.get(name, 0.0) + us
     return out
@@ -328,6 +333,46 @@ def table_checks(face_verts, k: int) -> None:
           f"k={k}: true counts add to {int(bins.true_counts.sum())}, faces touch {want}")
 
 
+def table_binning_check(face_verts, k: int, what: str) -> dict:
+    """K4's device binning against the plain binning on the same faces: the
+    tables (ids in table order, -1 past kept), kept and true counts bit for
+    bit, the work items and the stats equal to the plain mirror's, the valid
+    faces' geometry rows equal to `face_geometry`'s. Returns the stats."""
+    from ipercore_tpu_torch.ops import rasterizer as rz
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+
+    plan = rc.prepare_table(face_verts, SIZE, k)
+    bins = rc.bin_faces_table(face_verts, SIZE, k, with_stats=True)
+    for name in ("ids", "kept", "true_counts"):
+        check(torch.equal(getattr(plan.bins, name), getattr(bins, name)),
+              f"{what}: device table {name} differ from bin_faces_table's (k={k})")
+    mirror = rc.prepare_table_plain(face_verts, SIZE, k)
+    check(torch.equal(plan.items, mirror.items), f"{what}: work items differ from the plain mirror's")
+    stats = rc.table_stats(plan)
+    check(stats == bins.stats == rc.table_stats(mirror), f"{what}: stats {stats} != plain {bins.stats}")
+    _, valid = rz._face_bary_matrices(face_verts)
+    geom, _ = rc.face_geometry(face_verts)
+    check(torch.equal(plan.geom.view(torch.int32)[valid], geom.view(torch.int32)[valid]),
+          f"{what}: table geometry rows of valid faces differ from face_geometry")
+    return stats
+
+
+def crowded_tile_scene(device) -> torch.Tensor:
+    """One frame whose top-left 8x128 tile holds 6000 small faces (more than
+    the device select sorts whole in shared memory), many at tied minimum
+    depths, under 3 faces that span the frame (the wide list)."""
+    rng = np.random.RandomState(21)
+    n = 6000
+    c = np.stack([rng.uniform(-0.99, -0.55, n), rng.uniform(-0.995, -0.975, n)], -1)
+    d = rng.uniform(0.002, 0.01, (n, 3, 2))
+    z = np.round(rng.uniform(1.0, 3.0, (n, 1)), 2) + rng.uniform(0, 0.5, (n, 3)) * (rng.rand(n, 3) < 0.5)
+    small = np.concatenate([c[:, None, :] + d, z[..., None]], -1)
+    big = np.asarray([[[-0.95, -0.95, 4.0], [0.95, -0.9, 4.0], [0.0, 0.95, 4.0]],
+                      [[-0.9, 0.9, 5.0], [0.9, 0.95, 5.0], [0.1, -0.95, 5.0]],
+                      [[-0.99, -0.99, 3.5], [0.99, -0.99, 3.5], [-0.99, 0.99, 3.5]]])
+    return torch.as_tensor(np.concatenate([small, big]).astype(np.float32), device=device)[None].contiguous()
+
+
 def kernel_checks(model, assets, device) -> dict:
     from ipercore_tpu_torch.ops import rasterizer_cuda as rc
     from ipercore_tpu_torch.ops import sampling_cuda as sc
@@ -388,7 +433,7 @@ def kernel_checks(model, assets, device) -> dict:
     fim4, flows4, stats4 = rc.raster_flows_table(tgt_fv, aux, SIZE, k=TABLE_K, with_stats=True)
     torch.cuda.synchronize()
     (fim_p, flows_p), plain_ms = once_ms(lambda: rc.raster_flows_table_plain(tgt_fv, aux, SIZE, TABLE_K))
-    err4 = raster_agreement(fim4, fim_p, flows4, flows_p, "raster_flows_table")
+    err4 = raster_agreement(fim4, fim_p, flows4, flows_p, "raster_flows_table", bit_equal=True)
     agree4 = float((fim4 == fim_p).float().mean())
     check(stats4["n_overflow_tiles"] >= 1,
           f"raster_flows_table: no tile overflows k={TABLE_K} on the main path's chunk ({stats4})")
@@ -396,23 +441,49 @@ def kernel_checks(model, assets, device) -> dict:
     del fim_p, flows_p
     fim_s, flows_s, stats256 = rc.raster_flows_table(tgt_fv, aux, SIZE, k=256, with_stats=True)
     fim_p, flows_p = rc.raster_flows_table_plain(tgt_fv, aux, SIZE, 256)
-    err256 = raster_agreement(fim_s, fim_p, flows_s, flows_p, "raster_flows_table/k=256")
+    err256 = raster_agreement(fim_s, fim_p, flows_s, flows_p, "raster_flows_table/k=256", bit_equal=True)
     agree256 = float((fim_s == fim_p).float().mean())
     table_checks(tgt_fv, 256)
     del fim_p, flows_p, fim_s, flows_s
-    bins = rc.bin_faces_table(tgt_fv, SIZE, TABLE_K)
-    geom, _ = rc.face_geometry(tgt_fv)
+    # the device binning tile by tile: this chunk at both capacities, the
+    # source frames, and a crowded tile past the shared-memory sort (radix
+    # select at k = 2048, pairwise ranks at k = 5000 and 8000)
+    table_bins = {"chunk_k2048": table_binning_check(tgt_fv, TABLE_K, "table binning/chunk"),
+                  "chunk_k256": table_binning_check(tgt_fv, 256, "table binning/chunk k=256"),
+                  "source_k2048": table_binning_check(src_fv, TABLE_K, "table binning/source")}
+    check(table_bins["chunk_k256"]["n_overflow_tiles"] > table_bins["chunk_k2048"]["n_overflow_tiles"],
+          f"table binning: k=256 overflows no more tiles than k={TABLE_K}")
+    crowd = crowded_tile_scene(device)
+    for kc in (TABLE_K, 5000, 8000):
+        table_bins[f"crowded_k{kc}"] = table_binning_check(crowd, kc, f"table binning/crowded k={kc}")
+    check(table_bins["crowded_k2048"]["max_tile_load"] > 4096,
+          f"crowded scene: densest tile holds {table_bins['crowded_k2048']['max_tile_load']} <= 4096")
+    aux_c = torch.rand((1, crowd.shape[1], 3, 2), generator=torch.Generator().manual_seed(3)).to(device)
+    fim_c, flows_c = rc.raster_flows_table(crowd, aux_c, SIZE, k=TABLE_K)
+    fim_p, flows_p = rc.raster_flows_table_plain(crowd, aux_c, SIZE, TABLE_K)
+    err_c = raster_agreement(fim_c, fim_p, flows_c, flows_p, "raster_flows_table/crowded", bit_equal=True)
+    del fim_p, flows_p, fim_c, flows_c
+    check_no_host_sync(lambda: rc.raster_flows_table(tgt_fv, aux, SIZE, k=TABLE_K), "raster_flows_table")
+    plan4 = rc.prepare_table(tgt_fv, SIZE, TABLE_K)
     b_ms, b_by = bound(nbytes(tgt_fv, aux, fim4, flows4), raster_flops(tgt_fv, SIZE, flows4.numel()))
     results["raster_flows_table"] = {
         "route": "cuda", "source": "ipercore_tpu_torch/csrc/raster_table.cu",
-        "max_abs_err": max(err4, err256),
-        "kernel_ms": cuda_ms(lambda: rc.launch_raster_flows_table(geom, bins, aux, SIZE, J)),
+        "binning_source": "ipercore_tpu_torch/csrc/raster_table_bin.cu",
+        "max_abs_err": max(err4, err256, err_c),
+        "kernel_ms": cuda_ms(lambda: rc.launch_raster_flows_table(plan4, aux, SIZE, J)),
         "wrapper_ms": cuda_ms(lambda: rc.raster_flows_table(tgt_fv, aux, SIZE, k=TABLE_K)),
-        "binning_ms": cuda_ms(lambda: rc.bin_faces_table(tgt_fv, SIZE, TABLE_K)),
+        "binning_ms": cuda_ms(lambda: rc.prepare_table(tgt_fv, SIZE, TABLE_K)),
+        "plain_binning_ms": cuda_ms(lambda: rc.bin_faces_table(tgt_fv, SIZE, TABLE_K), reps=3),
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "host_syncs": host_syncs(lambda: rc.raster_flows_table(tgt_fv, aux, SIZE, k=TABLE_K)),
+        "host_syncs_with_stats": host_syncs(
+            lambda: rc.raster_flows_table(tgt_fv, aux, SIZE, k=TABLE_K, with_stats=True)),
+        "device_us": device_us_by_kernel(lambda: rc.raster_flows_table(tgt_fv, aux, SIZE, k=TABLE_K)),
+        "work_items": int(plan4.items[:, -1].sum()),
         "shape": f"T={T} F={F} S={SIZE} J={J} k={TABLE_K}", "stats": stats4,
         "fim_agreement": agree4, "max_abs_err_k2048": err4,
         "k256": {"stats": stats256, "fim_agreement": agree256, "max_abs_err": err256},
+        "device_binning_stats": table_bins,
     }
     del fim4, flows4
 
@@ -466,13 +537,26 @@ def kernel_checks(model, assets, device) -> dict:
     out = sc.grid_sample_nhwc(imgs, grid)
     ref, plain_ms = once_ms(lambda: sc.grid_sample_plain(imgs, grid))
     err = float((out - ref).abs().max())
-    check(err < 1e-5, f"grid_sample_nhwc: max abs error {err} >= 1e-5 at the main path's shape")
+    check(torch.equal(out, ref), f"grid_sample_nhwc: not bit-equal to the plain version ({err})")
+    # the main path's call: the grid read inside the flows, the result written
+    # into the first three channels of the generator's input
+    tsf = torch.full((T, SIZE, SIZE, 6), 7.0, device=device)
+    main_call = lambda: sc.grid_sample_nhwc(imgs, flows[..., 0, :], out=tsf[..., :3])
+    main_call()
+    check(torch.equal(tsf[..., :3], ref) and bool((tsf[..., 3:] == 7.0).all()),
+          "grid_sample_nhwc: the strided grid / out view call is not bit-equal to the plain version")
     # a non-tile-multiple output, 64 channels, coordinates beyond the image
     img64 = (torch.rand((2, 40, 56, 64), generator=g) * 2 - 1).to(device)
     grid_odd = (torch.rand((2, 100, 75, 2), generator=g) * 2.6 - 1.3).to(device)
     grid_odd[0, :5] = -2.0
     e64 = float((sc.grid_sample_nhwc(img64, grid_odd) - sc.grid_sample_plain(img64, grid_odd)).abs().max())
     check(e64 < 1e-5, f"grid_sample_nhwc: max abs error {e64} >= 1e-5 at 100x75, C=64")
+    # the rgb4 path at that odd shape, into an out view
+    img3 = img64[:1, ..., :3].contiguous().expand(2, -1, -1, -1)
+    odd = torch.zeros((2, 100, 75, 5), device=device)
+    sc.grid_sample_nhwc(img3, grid_odd, out=odd[..., 1:4])
+    check(torch.equal(odd[..., 1:4], sc.grid_sample_plain(img3, grid_odd)),
+          "grid_sample_nhwc: the shared RGB path differs from the plain version at 100x75")
     # bf16 image: the kernel converts taps to f32 exactly as the plain version does
     img_bf = img64.to(torch.bfloat16)
     out_bf = sc.grid_sample_nhwc(img_bf, grid_odd)
@@ -490,8 +574,12 @@ def kernel_checks(model, assets, device) -> dict:
     results["grid_sample_nhwc"] = {
         "route": "cuda", "source": "ipercore_tpu_torch/csrc/grid_sample.cu",
         "max_abs_err": max(err, e64, ebf), "kernel_ms": k_ms, "wrapper_ms": k_ms,
+        "main_path_call_ms": cuda_ms(main_call),
         "binning_ms": None, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lib), "max_abs_diff_vs_library": elib,
+        "device_us": device_us_by_kernel(lambda: sc.grid_sample_nhwc(imgs, grid)),
+        "main_path_call_device_us": device_us_by_kernel(main_call),
+        "library_device_us": sum(device_us_by_kernel(lib).values()),
         "shape": f"N={T} H=W={SIZE} C=3 -> {SIZE}x{SIZE}",
     }
     return results
@@ -520,10 +608,11 @@ def tiles_touched(face_verts, size: int) -> int:
 
 
 def counters() -> dict:
-    """Launch counters: the four kernels, and the device binning that K1 and
-    K3 launch before their walk."""
+    """Launch counters: the four kernels, the device binning that K1 and K3
+    launch before their walk, and K4's device binning."""
     from ipercore_tpu_torch.ops.rasterizer_cuda import (
         prepare_raster,
+        prepare_table,
         raster_fim,
         raster_flows,
         raster_flows_table,
@@ -532,7 +621,7 @@ def counters() -> dict:
 
     return {"raster_flows_csr": raster_flows, "grid_sample_nhwc": grid_sample_nhwc,
             "raster_fim": raster_fim, "raster_flows_table": raster_flows_table,
-            "raster_binning": prepare_raster}
+            "raster_binning": prepare_raster, "table_binning": prepare_table}
 
 
 def zero_counts() -> None:
@@ -557,8 +646,8 @@ def device_breakdown(fn) -> dict:
     for us, key in kernel_times(fn):
         by_name.append((us / 1e3, key[:70]))
         name = key.lower()
-        # the hand-written kernels: K1/K3's binning, walk and epilogue, K4, K2
-        if any(w in name for w in ("raster_", "grid_sample_nhwc_kernel")):
+        # the hand-written kernels: K1/K3's and K4's binning, walk and epilogue, K2
+        if HAND_WRITTEN.search(key):
             kinds["kernels"] += us
         elif any(w in name for w in ("conv", "cudnn", "gemm", "xmma", "cutlass", "winograd",
                                      "implicit", "nchwtonhwc", "nhwctonchw", "dgrad",
@@ -617,7 +706,8 @@ def main_path(device) -> tuple[dict, dict]:
     check(launches["raster_fim"] >= 2, f"raster_fim launched {launches['raster_fim']} times")
     for k in ("raster_flows_csr", "grid_sample_nhwc"):
         check(launches[k] >= N_FRAMES // CHUNK, f"{k} launched {launches[k]} times")
-    check(launches["raster_flows_table"] == 0, "the CSR route launched the table kernel")
+    check(launches["raster_flows_table"] == launches["table_binning"] == 0,
+          "the CSR route launched the table kernel or its binning")
     check(launches["raster_binning"] == launches["raster_flows_csr"] + launches["raster_fim"],
           f"the device binning ran {launches['raster_binning']} times for "
           f"{launches['raster_flows_csr'] + launches['raster_fim']} raster launches")
@@ -630,7 +720,8 @@ def main_path(device) -> tuple[dict, dict]:
         d = smpl_mod.get_details(model, torch.as_tensor(smpls[i:i + CHUNK], device=device))
         fv = rz.verts_to_faces(rz.project_verts(d["verts"], d["cam"]), model.faces).contiguous()
         st = binning_check(fv, SIZE, f"main path chunk {i // CHUNK}")
-        stats.append(dict(st, tile_loads=tile_loads(rc.prepare_raster(fv, SIZE))))
+        stats.append(dict(st, tile_loads=tile_loads(rc.prepare_raster(fv, SIZE)),
+                          table=table_binning_check(fv, TABLE_K, f"main path chunk {i // CHUNK}")))
 
     # one chunk again: kernels, then the plain versions forced on the GPU
     batch = torch.as_tensor(smpls[:CHUNK], device=device)
@@ -653,7 +744,8 @@ def main_path(device) -> tuple[dict, dict]:
     breakdown = device_breakdown(lambda: imit.synthesize_frames(comp, gen, cache, batch))
     syncs = host_syncs(lambda: imit.synthesize_frames(comp, gen, cache, batch))
 
-    ctx = {"comp": comp, "gen": gen, "cache": cache, "smpls": smpls, "pred_csr": pred_k}
+    ctx = {"comp": comp, "gen": gen, "cache": cache, "smpls": smpls, "pred_csr": pred_k,
+           "chunk_ms": chunk_ms, "idle_share": 1 - breakdown["busy"] / chunk_ms}
     return ctx, {
         "model": "AttLWB-SPADE", "params": n_params, "size": SIZE, "ns": NS,
         "frames": N_FRAMES, "chunk": CHUNK, "dtype": "float32", "tf32": False,
@@ -704,7 +796,8 @@ def table_route(ctx, device) -> dict:
             pred_p, _ = imit.synthesize_frames(comp, gen, cache, batch)
         chunk_ms = cuda_ms(lambda: imit.synthesize_frames(comp, gen, cache, batch), reps=3, warmup=1)
         breakdown = device_breakdown(lambda: imit.synthesize_frames(comp, gen, cache, batch))
-    check(launches["raster_flows_table"] >= 1, f"table route: launches {launches}")
+    check(launches["raster_flows_table"] >= 1 and launches["table_binning"] == launches["raster_flows_table"],
+          f"table route: launches {launches}")
     check(launches["raster_flows_csr"] == 0, f"table route launched the CSR kernel: {launches}")
     close = close_fraction(pred_k, pred_p)
     check(close >= 0.995, f"table route: kernel and plain runs agree on {close} of values, < 0.995")
@@ -712,6 +805,7 @@ def table_route(ctx, device) -> dict:
     return {"launches": launches, "chunk": CHUNK, "chunk_ms": chunk_ms,
             "device_ms_per_chunk": breakdown,
             "device_idle_share": 1 - breakdown["busy"] / chunk_ms,
+            "csr_route_chunk_ms": ctx["chunk_ms"], "csr_route_device_idle_share": ctx["idle_share"],
             "kernel_vs_plain_close_fraction": close,
             "close_fraction_vs_csr_route": close_fraction(pred_k, ctx["pred_csr"])}
 

@@ -67,13 +67,6 @@ static_assert(ITEM * 4 == THREADS, "four threads gather each of an item's rows")
 constexpr int WALK_BLOCKS_PER_SM = 8;
 constexpr unsigned long long NO_FACE = ~0ull;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
 // The pixels a warp owns: WARP_H rows x WARP_W columns of the tile, so that
 // its box test against a face culls as much as a warp can (taller than wide:
 // it cuts the warp-face hits of the main path's faces by about 30 % against
@@ -241,17 +234,6 @@ raster_epilogue_kernel(const float* __restrict__ geom, const unsigned long long*
         }
         o[i] = v;
     }
-}
-
-int sm_count() {
-    static int n = 0;
-    if (n == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-        if (n <= 0) n = 1;
-    }
-    return n;
 }
 
 // zbuf holds zb_frames frames of S*S keys and then zb_frames counters;

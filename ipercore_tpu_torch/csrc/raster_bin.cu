@@ -34,12 +34,6 @@ namespace {
 
 using namespace raster;
 
-// f32 a*b + c rounded once after an exact product and an f64 sum, as
-// ops/rasterizer.py::fma32 computes it.
-__device__ __forceinline__ float fma32(float a, float b, float c) {
-    return __double2float_rn(__dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
-}
-
 // Inclusive tile range [t0, t1] of the padded extent [vmin, vmax] on a grid
 // of g tiles: floor(((v + 1) * S/2 - 0.5 -+ margin) / TILE), clipped.
 __device__ __forceinline__ int2 tile_range(float vmin, float vmax, int S, int g) {
@@ -52,29 +46,6 @@ __device__ __forceinline__ int2 tile_range(float vmin, float vmax, int S, int g)
     return make_int2((int)t0, (int)t1);
 }
 
-// Calls visit(tile, same, leader) once for every (face, tile) entry of the
-// warp's listed faces (span <= E_CAP), the warp's lanes in step: `same` is
-// the mask of lanes at the same global tile in this step and `leader` its
-// lowest lane, so one atomic per tile and step serves them all (neighbouring
-// face ids tend to share tiles, and the densest tile holds about 1400 faces).
-template <typename Visit>
-__device__ __forceinline__ void for_each_listed_tile(long long i, int F, int g, int4 range,
-                                                     unsigned span, Visit visit) {
-    const int n = (range.x >= 0 && span <= E_CAP) ? (int)span : 0;
-    const int ntx = range.y - range.x + 1;
-    const long long tiles0 = (i / max(F, 1)) * g * g;
-    for (int it = 0;; ++it) {
-        const unsigned active = __ballot_sync(0xffffffffu, it < n);
-        if (!active) break;
-        if (it < n) {
-            const int dy = it / ntx, dx = it - dy * ntx;
-            const long long tile = tiles0 + (long long)(range.z + dy) * g + range.x + dx;
-            const unsigned same = __match_any_sync(active, tile);
-            visit(tile, same, __ffs(same) - 1);
-        }
-    }
-}
-
 // frange: (tx0, tx1, ty0, ty1) per face, tx0 = -1 when the face is invalid.
 __global__ void __launch_bounds__(256)
 raster_count_kernel(const float* __restrict__ fv, int T, int F, int S, int g,
@@ -85,34 +56,9 @@ raster_count_kernel(const float* __restrict__ fv, int T, int F, int S, int g,
     unsigned span = 0, wide = 0;
     int4 range = make_int4(-1, -1, -1, -1);
     if (i < (long long)T * F) {
-        const float* v = fv + i * 9;
-        const float x0 = v[0], y0 = v[1], z0 = v[2];
-        const float x1 = v[3], y1 = v[4], z1 = v[5];
-        const float x2 = v[6], y2 = v[7], z2 = v[8];
-        const float det = fma32(x2, __fsub_rn(y0, y1),
-                                fma32(x0, __fsub_rn(y1, y2), -__fmul_rn(x1, __fsub_rn(y0, y2))));
-        const bool degenerate = fabsf(det) < 1e-12f;
-        const float inv = degenerate ? 0.0f : __frcp_rn(det);
-        // rows (1,2), (2,0), (0,1): [yi - yj, xj - xi, fma(xi, yj, -(xj * yi))] * inv
-        const float m00 = __fmul_rn(__fsub_rn(y1, y2), inv), m01 = __fmul_rn(__fsub_rn(x2, x1), inv);
-        const float m02 = __fmul_rn(fma32(x1, y2, -__fmul_rn(x2, y1)), inv);
-        const float m10 = __fmul_rn(__fsub_rn(y2, y0), inv), m11 = __fmul_rn(__fsub_rn(x0, x2), inv);
-        const float m12 = __fmul_rn(fma32(x2, y0, -__fmul_rn(x0, y2)), inv);
-        const float m20 = __fmul_rn(__fsub_rn(y0, y1), inv), m21 = __fmul_rn(__fsub_rn(x1, x0), inv);
-        const float m22 = __fmul_rn(fma32(x0, y1, -__fmul_rn(x1, y0)), inv);
-        const float xmin = fminf(fminf(x0, x1), x2), xmax = fmaxf(fmaxf(x0, x1), x2);
-        const float ymin = fminf(fminf(y0, y1), y2), ymax = fmaxf(fmaxf(y0, y1), y2);
-        const float zmin = fminf(fminf(z0, z1), z2), zmax = fmaxf(fmaxf(z0, z1), z2);
-        float4* row = reinterpret_cast<float4*>(geom + i * ROW);
-        row[0] = make_float4(m00, m01, m02, m10);
-        row[1] = make_float4(m11, m12, m20, m21);
-        row[2] = make_float4(m22, z0, z1, z2);
-        row[3] = make_float4(xmin, xmax, ymin, ymax);
-
-        const bool on_screen = !(xmax < -1.5f || xmin > 1.5f || ymax < -1.5f || ymin > 1.5f);
-        const bool valid = !degenerate && zmin < FAR_Z && zmax > NEAR_Z && on_screen;
-        if (valid) {
-            const int2 tx = tile_range(xmin, xmax, S, g), ty = tile_range(ymin, ymax, S, g);
+        const FaceBox b = face_row(fv + i * 9, geom + i * ROW);
+        if (b.valid) {
+            const int2 tx = tile_range(b.xmin, b.xmax, S, g), ty = tile_range(b.ymin, b.ymax, S, g);
             range = make_int4(tx.x, tx.y, ty.x, ty.y);
             span = (unsigned)((tx.y - tx.x + 1) * (ty.y - ty.x + 1));
             if (span > E_CAP) {
@@ -122,7 +68,7 @@ raster_count_kernel(const float* __restrict__ fv, int T, int F, int S, int g,
         }
         frange[i] = range;
     }
-    for_each_listed_tile(i, F, g, range, span, [&](long long tile, unsigned same, int leader) {
+    for_each_listed_tile(i, F, g, g * g, range, span, [&](long long tile, unsigned same, int leader) {
         if ((threadIdx.x & 31) == leader) atomicAdd(&counts[tile], (unsigned)__popc(same));
     });
     // one atomic per warp for the stats (blockDim is a multiple of 32)
@@ -207,7 +153,7 @@ raster_fill_kernel(const int4* __restrict__ frange, int T, int F, int g, int* __
     const int f = (int)(i / F), face = (int)(i - (long long)f * F);
     if (span > E_CAP) wide_ids[(long long)f * F + atomicAdd(&wide_fill[f], 1u)] = face;
     const int lane = threadIdx.x & 31;
-    for_each_listed_tile(i, F, g, r, span, [&](long long tile, unsigned same, int leader) {
+    for_each_listed_tile(i, F, g, g * g, r, span, [&](long long tile, unsigned same, int leader) {
         int base = 0;
         if (lane == leader) base = atomicAdd(&cursor[tile], __popc(same));
         base = __shfl_sync(same, base, leader);

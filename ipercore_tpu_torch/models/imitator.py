@@ -35,7 +35,7 @@ from ipercore_tpu_torch.models import flow_composition as fc
 from ipercore_tpu_torch.models import smpl as smpl_mod
 from ipercore_tpu_torch.ops import rasterizer as rz
 from ipercore_tpu_torch.ops import rotations as rot
-from ipercore_tpu_torch.ops.rasterizer_cuda import raster_flows, raster_flows_table
+from ipercore_tpu_torch.ops.rasterizer_cuda import TABLE_TILE_W, raster_flows, raster_flows_table
 from ipercore_tpu_torch.ops.sampling_cuda import grid_sample_nhwc
 from ipercore_tpu_torch.utils import camera as cam_utils
 
@@ -201,7 +201,10 @@ def make_frame_inputs(
         sample_dtype: optional dtype (torch.bfloat16) of the UV image for the
             UV warp; coordinates stay f32.
         full_ref_info: take the unfused branch (`render_smpl_info` +
-            `cal_bc_transform`) that also returns wim and f2pts.
+            `cal_bc_transform`) that also returns wim and f2pts. The table
+            route (`IPERCORE_CSR_RASTER=0`) takes that branch too where S is
+            not a multiple of 128, as the JAX package does off its Pallas
+            route.
 
     Returns:
         tsf_inputs (T, S, S, 6), Tst (T, ns, S/stride, S/stride, 2), ref_info.
@@ -214,12 +217,13 @@ def make_frame_inputs(
 
     details = smpl_mod.get_details(comp.model, tgt_smpl, offsets, links_ids)
 
-    if not full_ref_info:
+    csr = use_csr_raster()
+    if not full_ref_info and (csr or S % TABLE_TILE_W == 0):
         # fused path: one pass emits fim, the UV flow and all source flows
         proj = rz.project_verts(details["verts"], details["cam"])
         face_verts = rz.verts_to_faces(proj, comp.model.faces)  # (T, F, 3, 3)
         aux = torch.cat([comp.assets.f2uvs[None], cache.src_f2pts], dim=0)  # (1+ns, F, 3, 2)
-        if use_csr_raster():
+        if csr:
             fim, flows = raster_flows(face_verts, aux, S)
         else:
             fim, flows = raster_flows_table(face_verts, aux, S)
@@ -246,10 +250,22 @@ def make_frame_inputs(
     # Tuv2t warp of the UV image: the warp the JAX package gives to its Pallas
     # sampler, so here it goes to the grid-sample kernel (plain version on CPU)
     uv_img = cache.uv_img if sample_dtype is None else cache.uv_img.to(sample_dtype)
-    uv_rep = uv_img.expand((T,) + tuple(uv_img.shape[1:]))
-    syn = grid_sample_nhwc(uv_rep, Tuv2t.contiguous()).to(cache.uv_img.dtype)
-    tsf_inputs = torch.cat([syn, ref_info["cond"]], dim=-1)  # (T, S, S, 6)
+    tsf_inputs = _warp_uv_beside(uv_img, Tuv2t, ref_info["cond"])  # (T, S, S, 6)
     return tsf_inputs, Tst, ref_info
+
+
+def _warp_uv_beside(uv_img: torch.Tensor, grid: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    """`cat([grid_sample(uv_img, grid), cond], -1)` without the concatenation:
+    the sampler writes the first channels of the (T, S, S, 3 + C) result and
+    reads `grid` (T, S, S, 2) through its pixel stride, so the UV flow needs no
+    copy out of the flows; `cond` fills the other channels. uv_img
+    (1, S', S', 3) is shared by the batch."""
+    T = grid.shape[0]
+    out = torch.empty(tuple(cond.shape[:-1]) + (3 + cond.shape[-1],), dtype=torch.float32,
+                      device=cond.device)
+    grid_sample_nhwc(uv_img.expand((T,) + tuple(uv_img.shape[1:])), grid, out=out[..., :3])
+    out[..., 3:] = cond
+    return out
 
 
 @torch.no_grad()
@@ -337,9 +353,7 @@ def make_temporal_inputs_fused(
     st = 2 if S >= 512 else 1  # the finest feature warp runs at S/2
     Tst = flows[:, ::st, ::st, 1:1 + ns, :].permute(0, 3, 1, 2, 4)
     Ttt = flows[..., 1 + ns, :]
-    uv_rep = cache.uv_img.expand((T,) + tuple(cache.uv_img.shape[1:]))
-    syn = grid_sample_nhwc(uv_rep, flows[..., 0, :].contiguous()).to(cache.uv_img.dtype)
-    return torch.cat([syn, cond], dim=-1), Tst, Ttt
+    return _warp_uv_beside(cache.uv_img, flows[..., 0, :], cond), Tst, Ttt
 
 
 @torch.no_grad()

@@ -9,7 +9,8 @@ headers there for the design and for what bounds it on an H100.
 `raster_flows_table` replaces `_raster_flow_kernel` (entry
 `rasterize_flows_pallas`), the fixed-capacity variant that keeps the JAX
 package's 8x128 tiles and nearest-first tables; its device code is
-`csrc/raster_table.cu` and its section below says why the tile stays.
+`csrc/raster_table.cu`, fed by the device binning of
+`csrc/raster_table_bin.cu`, and its section below says why the tile stays.
 
 Binning of K1 and K3 (`prepare_raster`). Each valid face's box, padded by
 2 px, touches an inclusive range of 16x16 tiles. A face whose range holds at
@@ -423,8 +424,18 @@ raster_fim.launches = 0
 # product and the sum each rounded to f32 (x likewise with 128). For S a power
 # of two this equals K1's (2i + 1 - S) / S bit for bit; for other multiples
 # of 128 the two may differ in the last bit.
+#
+# On a CUDA tensor the tables are built on the device (`prepare_table`,
+# `csrc/raster_table_bin.cu`: count, scan, fill and a per-tile select, no host
+# sync and no PyTorch sort) and walked by `csrc/raster_table.cu`.
+# `bin_faces_table` is the plain binning (the CPU path and the checks);
+# `prepare_table_plain` mirrors the device's layout and its sort key.
 
-TABLE_TILE_H, TABLE_TILE_W = 8, 128  # must equal TILE_H, TILE_W in csrc/raster_table.cu
+# must equal TILE_H, TILE_W, ITEM, PARTS in csrc/raster_table.cuh
+TABLE_TILE_H, TABLE_TILE_W = 8, 128
+TABLE_ITEM = 64  # table entries per work item of the walk
+TABLE_PARTS = 4  # column blocks of 8x32 pixels per tile, one work item each
+TABLE_STAT_KEYS = ("max_tile_load", "n_overflow_tiles", "total_entries")
 
 
 class TableBins(NamedTuple):
@@ -444,6 +455,23 @@ class TableBins(NamedTuple):
     stats: dict
 
 
+class TablePlan(NamedTuple):
+    """K4's binning as its walk reads it.
+
+    geom: (T, F, 16) f32 face rows [M 9 | z 3 | bbox 4];
+    bins: the tables (`TableBins`, stats None);
+    items: (T, n_tiles + 1) int32 first work item of each tile and, last, the
+        frame's item count: tile t has TABLE_PARTS * ceil(kept / TABLE_ITEM);
+    stats: (3,) int32 on the device, in the order of TABLE_STAT_KEYS
+        (`table_stats` reads them).
+    """
+
+    geom: torch.Tensor
+    bins: TableBins
+    items: torch.Tensor
+    stats: torch.Tensor
+
+
 def _check_table_inputs(face_verts: torch.Tensor, size: int) -> None:
     if face_verts.dim() != 4 or face_verts.shape[-2:] != (3, 3):
         raise ValueError(f"face_verts must be (T, F, 3, 3), got {tuple(face_verts.shape)}")
@@ -453,30 +481,11 @@ def _check_table_inputs(face_verts: torch.Tensor, size: int) -> None:
         raise ValueError(f"size must be a positive multiple of {TABLE_TILE_W}, got {size}")
 
 
-def bin_faces_table(face_verts: torch.Tensor, size: int, k: int = 2048,
-                    with_stats: bool = False) -> TableBins:
-    """Nearest-first fixed-capacity binning into 8x128 tiles (JAX `_bin_faces`).
-
-    A valid face belongs to every tile whose index range its pixel box, padded
-    by 1 px, covers: `to_px(v) = (v + 1) * (S/2) - 0.5` in f32, then
-    `floor((lo - 1) / 128)`, `floor((hi + 1) / 128)` (rows by 8), clipped to
-    the grid. Faces are ranked per frame by a stable argsort of their minimum
-    vertex depth; each tile keeps its first `min(true_count, k)` faces in that
-    order. Runs on the tensors' device; one host sync sizes the entry array,
-    and `with_stats` adds one more for the stats.
-
-    Args:
-        face_verts: (T, F, 3, 3) f32 projected faces.
-        size: S, a multiple of 128.
-        k: capacity per tile.
-        with_stats: fill `stats`; otherwise it is None.
-    """
-    _check_table_inputs(face_verts, size)
-    T, F = face_verts.shape[0], face_verts.shape[1]
-    dev = face_verts.device
+def _table_tile_ranges(face_verts: torch.Tensor, size: int) -> tuple[torch.Tensor, ...]:
+    """Inclusive 8x128 tile ranges (tx0, tx1, ty0, ty1), each (T, F) int64, of
+    the faces' boxes padded by 1 px: `to_px(v) = (v + 1) * (S/2) - 0.5` in f32,
+    then `floor((lo - 1) / 128)`, `floor((hi + 1) / 128)` (rows by 8), clipped."""
     gy, gx = size // TABLE_TILE_H, size // TABLE_TILE_W
-    n_tiles = gy * gx
-    _, valid = rz._face_bary_matrices(face_verts)
     x, y = face_verts[..., 0], face_verts[..., 1]
 
     def to_px(v):
@@ -487,14 +496,24 @@ def bin_faces_table(face_verts: torch.Tensor, size: int, k: int = 2048,
         t1 = torch.floor((to_px(hi) + 1) / tile).clamp(0, g - 1).long()
         return t0, t1
 
-    tx0, tx1 = tiles(x.amin(-1), x.amax(-1), TABLE_TILE_W, gx)
-    ty0, ty1 = tiles(y.amin(-1), y.amax(-1), TABLE_TILE_H, gy)
-    order = torch.argsort(face_verts[..., 2].amin(-1), dim=-1, stable=True)  # (T, F) nearest first
-    rank = torch.empty_like(order)
-    rank.scatter_(1, order, torch.arange(F, device=dev).expand(T, F).contiguous())
+    return (tiles(x.amin(-1), x.amax(-1), TABLE_TILE_W, gx)
+            + tiles(y.amin(-1), y.amax(-1), TABLE_TILE_H, gy))
 
-    tile_s, rank_s, seg, _ = _bin_entries(tx0, tx1, ty0, ty1, valid, gx, n_tiles, rank)
-    fid = order.reshape(-1)[(tile_s // n_tiles) * F + rank_s]  # rank -> face id
+
+def _bin_table(face_verts: torch.Tensor, size: int, k: int, rank: torch.Tensor,
+               with_stats: bool) -> TableBins:
+    """Tables from a per-frame rank of the faces (a permutation of [0, F),
+    nearest first): each tile keeps its first min(true_count, k) faces by rank."""
+    T, F = face_verts.shape[0], face_verts.shape[1]
+    dev = face_verts.device
+    n_tiles = (size // TABLE_TILE_H) * (size // TABLE_TILE_W)
+    _, valid = rz._face_bary_matrices(face_verts)
+    tx0, tx1, ty0, ty1 = _table_tile_ranges(face_verts, size)
+    order = torch.empty_like(rank)
+    order.scatter_(1, rank, torch.arange(F, device=dev).expand(T, F).contiguous())  # rank -> face id
+    tile_s, rank_s, seg, _ = _bin_entries(tx0, tx1, ty0, ty1, valid, size // TABLE_TILE_W, n_tiles,
+                                          rank)
+    fid = order.reshape(-1)[(tile_s // n_tiles) * F + rank_s]
     true_counts = (seg[1:] - seg[:-1]).to(torch.int32)
     pos = torch.arange(tile_s.numel(), device=dev) - seg[tile_s]
     # entries past the capacity go to one extra slot that is cut off after
@@ -511,6 +530,127 @@ def bin_faces_table(face_verts: torch.Tensor, size: int, k: int = 2048,
                  "total_entries": tile_s.numel()}
     return TableBins(ids[:-1].reshape(T, n_tiles, k), kept.reshape(T, n_tiles),
                      true_counts.reshape(T, n_tiles), stats)
+
+
+def bin_faces_table(face_verts: torch.Tensor, size: int, k: int = 2048,
+                    with_stats: bool = False) -> TableBins:
+    """Nearest-first fixed-capacity binning into 8x128 tiles (JAX `_bin_faces`):
+    the plain version of K4's binning.
+
+    A valid face belongs to every tile whose index range its pixel box, padded
+    by 1 px, covers (`_table_tile_ranges`). Faces are ranked per frame by a
+    stable argsort of their minimum vertex depth; each tile keeps its first
+    `min(true_count, k)` faces in that order. Runs on the tensors' device; one
+    host sync sizes the entry array, and `with_stats` adds one more for the
+    stats.
+
+    Args:
+        face_verts: (T, F, 3, 3) f32 projected faces.
+        size: S, a multiple of 128.
+        k: capacity per tile.
+        with_stats: fill `stats`; otherwise it is None.
+    """
+    _check_table_inputs(face_verts, size)
+    T, F = face_verts.shape[0], face_verts.shape[1]
+    order = torch.argsort(face_verts[..., 2].amin(-1), dim=-1, stable=True)  # (T, F) nearest first
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(F, device=face_verts.device).expand(T, F).contiguous())
+    return _bin_table(face_verts, size, k, rank, with_stats)
+
+
+def table_depth_key(z: torch.Tensor) -> torch.Tensor:
+    """The device binning's 32-bit sort key of a depth (`depth_key` in
+    `csrc/raster_table_bin.cu`), as int64: it orders as the floats compare,
+    -0.0 equal to +0.0."""
+    u = z.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    u = torch.where(u == 0x80000000, torch.zeros_like(u), u)
+    return torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+
+
+def _table_items(kept: torch.Tensor) -> torch.Tensor:
+    """(T, n_tiles + 1) int32 work-item starts of each tile and the frame's total."""
+    n = TABLE_PARTS * ((kept.long() + TABLE_ITEM - 1) // TABLE_ITEM)
+    return torch.cat([torch.zeros_like(n[:, :1]), torch.cumsum(n, 1)], 1).to(torch.int32)
+
+
+def prepare_table_plain(face_verts: torch.Tensor, size: int, k: int = 2048) -> TablePlan:
+    """Plain mirror of `prepare_table`: the same plan from the device's sort key
+    (`table_depth_key(minimum depth) << 32 | face id`, ascending) with
+    PyTorch. Runs on the tensor's device; one host sync sizes the entries."""
+    _check_table_inputs(face_verts, size)
+    T, F = face_verts.shape[0], face_verts.shape[1]
+    dev = face_verts.device
+    # the unsigned 64-bit key, less 2**63 so that int64 orders it alike
+    key = ((table_depth_key(face_verts[..., 2].amin(-1)) - 2 ** 31) << 32) | torch.arange(F, device=dev)
+    rank = torch.argsort(torch.argsort(key, dim=-1), dim=-1)
+    bins = _bin_table(face_verts, size, k, rank, with_stats=False)
+    tc = bins.true_counts
+    stats = (torch.stack([tc.max(), (tc > k).sum(), tc.sum()]) if tc.numel()
+             else torch.zeros(3, dtype=torch.int64, device=dev))
+    return TablePlan(face_geometry(face_verts)[0], bins, _table_items(bins.kept),
+                     stats.to(torch.int32))
+
+
+def table_stats(plan: TablePlan) -> dict:
+    """The table binning's stats as python ints: one host sync."""
+    return dict(zip(TABLE_STAT_KEYS, plan.stats.tolist()))
+
+
+def _check_table_constants(lib: ctypes.CDLL, fn: str) -> None:
+    got = (ctypes.c_int * 6)()
+    getattr(lib, fn)(got)
+    if tuple(got) != (TABLE_TILE_H, TABLE_TILE_W, E_CAP, TABLE_ITEM, TABLE_PARTS, 16):
+        raise RuntimeError(f"csrc/raster_table.cuh and rasterizer_cuda.py disagree: {tuple(got)}")
+
+
+def _table_bin_lib() -> ctypes.CDLL:
+    lib = cuda_build.load_library("raster_table_bin")
+    if not getattr(lib, "_ipercore_ready", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.raster_table_bin_constants.argtypes = [p]
+        lib.raster_table_bin_launch.argtypes = [p, i, i, i, i] + [p] * 13
+        lib.raster_table_bin_launch.restype = i
+        _check_table_constants(lib, "raster_table_bin_constants")
+        lib._ipercore_ready = True
+    return lib
+
+
+def prepare_table(face_verts: torch.Tensor, size: int, k: int = 2048) -> TablePlan:
+    """K4's binning: face geometry and the nearest-first tables. On a CUDA
+    tensor the kernels of `csrc/raster_table_bin.cu`, no host sync; on a CPU
+    tensor the plain mirror."""
+    _check_table_inputs(face_verts, size)
+    if k <= 0:
+        raise ValueError(f"k must be positive, got {k}")
+    if not use_kernel(face_verts):
+        return prepare_table_plain(face_verts, size, k)
+    face_verts = face_verts.contiguous()
+    T, F = face_verts.shape[0], face_verts.shape[1]
+    gy, gx = size // TABLE_TILE_H, size // TABLE_TILE_W
+    n_tiles = gy * gx
+    if T * F * E_CAP >= 2 ** 31 or T * n_tiles * k >= 2 ** 31:
+        raise ValueError(f"T={T}, F={F}, k={k}: the binning's entries do not fit int32 offsets")
+    dev = face_verts.device
+    geom = torch.empty((T, F, 16), dtype=torch.float32, device=dev)
+    sizes = (T * F * 4, T * F, T * F, T * n_tiles + T + len(TABLE_STAT_KEYS) + 2, T * n_tiles,
+             T * n_tiles, T * n_tiles, T * n_tiles, T * (n_tiles + 1), T * F * E_CAP + T * n_tiles)
+    # frange first: its int4 rows need the buffer's 16-byte alignment
+    frange, zkey, wide_ids, zeroed, seg, cursor, true_counts, kept, items, list_ids = torch.split(
+        torch.empty(sum(sizes), dtype=torch.int32, device=dev), sizes)
+    ids = torch.empty((T, n_tiles, k), dtype=torch.int32, device=dev)
+    err = _table_bin_lib().raster_table_bin_launch(
+        face_verts.data_ptr(), T, F, size, k, geom.data_ptr(), zkey.data_ptr(), frange.data_ptr(),
+        wide_ids.data_ptr(), zeroed.data_ptr(), seg.data_ptr(), cursor.data_ptr(),
+        true_counts.data_ptr(), kept.data_ptr(), items.data_ptr(), list_ids.data_ptr(),
+        ids.data_ptr(), _stream())
+    cuda_build.check_launch(err, "table binning")
+    prepare_table.launches += 1
+    bins = TableBins(ids, kept.view(T, n_tiles), true_counts.view(T, n_tiles), None)
+    n_stats = len(TABLE_STAT_KEYS)
+    return TablePlan(geom, bins, items.view(T, n_tiles + 1), zeroed[-n_stats - 2:-2])
+
+
+prepare_table.launches = 0
 
 
 def _table_pixel_centres(size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -603,6 +743,7 @@ def raster_flows_table_plain(face_verts: torch.Tensor, aux_pts: torch.Tensor, si
     return fim, torch.stack(flows, dim=3)
 
 
+
 def raster_flows_table(face_verts: torch.Tensor, aux_pts: torch.Tensor, size: int,
                        k: int = 2048, with_stats: bool = False):
     """Batched rasterize + flows over nearest-first k-capacity tile tables:
@@ -622,42 +763,41 @@ def raster_flows_table(face_verts: torch.Tensor, aux_pts: torch.Tensor, size: in
     """
     _check_table_inputs(face_verts, size)
     J = _check_table_aux(face_verts, aux_pts)
-    bins = bin_faces_table(face_verts, size, k, with_stats)
     if not use_kernel(face_verts):
+        bins = bin_faces_table(face_verts, size, k, with_stats)
         fim, flows = raster_flows_table_plain(face_verts, aux_pts, size, k, bins)
-    else:
-        geom, _ = face_geometry(face_verts.contiguous())
-        fim, flows = launch_raster_flows_table(geom, bins, aux_pts.contiguous(), size, J)
-    return (fim, flows, bins.stats) if with_stats else (fim, flows)
+        return (fim, flows, bins.stats) if with_stats else (fim, flows)
+    plan = prepare_table(face_verts, size, k)
+    fim, flows = launch_raster_flows_table(plan, aux_pts.contiguous(), size, J)
+    return (fim, flows, table_stats(plan)) if with_stats else (fim, flows)
 
 
 def _table_lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("raster_table")
     if not getattr(lib, "_ipercore_ready", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.raster_table_tile_shape.argtypes = []
-        lib.raster_table_tile_shape.restype = i
-        lib.raster_flows_table_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p]
+        lib.raster_table_constants.argtypes = [p]
+        lib.raster_flows_table_launch.argtypes = [p] * 5 + [i] * 5 + [p, i, p, p, p]
         lib.raster_flows_table_launch.restype = i
-        if lib.raster_table_tile_shape() != TABLE_TILE_H * 1000 + TABLE_TILE_W:
-            raise RuntimeError("csrc/raster_table.cu and rasterizer_cuda.py disagree on the tile")
+        _check_table_constants(lib, "raster_table_constants")
         lib._ipercore_ready = True
     return lib
 
 
-def launch_raster_flows_table(geom: torch.Tensor, bins: TableBins, aux: torch.Tensor,
-                              size: int, J: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the outputs and launch the table kernel (the one place where
-    it is launched and counted). geom (T, F, 16) and aux (J, F, 3, 2) must be
+def launch_raster_flows_table(plan: TablePlan, aux: torch.Tensor, size: int,
+                              J: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Allocate the outputs and launch the table walk and its epilogue (the
+    one place where they are launched and counted). `aux` (J, F, 3, 2) must be
     contiguous f32 on the GPU."""
-    T, F = geom.shape[0], geom.shape[1]
-    k = bins.ids.shape[-1]
-    dev = geom.device
+    T, F = plan.geom.shape[0], plan.geom.shape[1]
+    k = plan.bins.ids.shape[-1]
+    dev = plan.geom.device
     fim = torch.empty((T, size, size), dtype=torch.int32, device=dev)
     flows = torch.empty((T, size, size, J, 2), dtype=torch.float32, device=dev)
-    ids, kept = bins.ids.contiguous(), bins.kept.contiguous()
+    zbuf, zb_frames = _zbuf(T, size, dev)
     err = _table_lib().raster_flows_table_launch(
-        geom.data_ptr(), ids.data_ptr(), kept.data_ptr(), aux.data_ptr(), T, F, size, J, k,
+        plan.geom.data_ptr(), plan.bins.ids.data_ptr(), plan.bins.kept.data_ptr(),
+        plan.items.data_ptr(), aux.data_ptr(), T, F, size, J, k, zbuf.data_ptr(), zb_frames,
         fim.data_ptr(), flows.data_ptr(), _stream())
     cuda_build.check_launch(err, "raster_flows_table")
     raster_flows_table.launches += 1

@@ -3,10 +3,13 @@
 `grid_sample_nhwc` replaces the Pallas TPU kernel `_sample_kernel`
 (`ipercore_tpu/ops/sampling_pallas.py`, entry `grid_sample_pallas`): bilinear,
 zero-padded, align_corners=False sample of (N, H, W, C) at (N, h, w, 2),
-returned in f32. The device code is `csrc/grid_sample.cu`: one thread per
-output pixel and a direct 4-tap gather. It is bound by memory traffic (image
-and grid read once, output written once); at C = 3 launch overhead is of the
-same order as the kernel.
+returned in f32. The device code is `csrc/grid_sample.cu`: a direct 4-tap
+gather, with a path for the main path's case (one f32 RGB image shared by the
+batch, repacked to 4 channels so that a tap is one 16-byte load). The grid is
+read and the output written through their pixel strides, so the caller can
+hand over the UV flow inside the flows tensor and a channel slice of the
+generator's input as `out`. It is bound by memory traffic (image and grid
+read once, output written once).
 
 The plain version is explicit floor / 4-tap code with the kernel's arithmetic
 order, not `torch.nn.functional.grid_sample`, so it is independent of that
@@ -28,7 +31,8 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("grid_sample")
     if not getattr(lib, "_ipercore_ready", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.grid_sample_nhwc_launch.argtypes = [p, i, ctypes.c_longlong, p, p, i, i, i, i, i, i, p]
+        ll = ctypes.c_longlong
+        lib.grid_sample_nhwc_launch.argtypes = [p, i, ll, p, ll, p, ll, p, i, i, i, i, i, i, p]
         lib.grid_sample_nhwc_launch.restype = i
         lib._ipercore_ready = True
     return lib
@@ -66,15 +70,33 @@ def grid_sample_plain(imgs: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
     return acc + tap(1, 1, vy1 & vx1) * (wy1 * wx1)[..., None]
 
 
-def grid_sample_nhwc(imgs: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
+def _pixel_stride(t: torch.Tensor) -> int | None:
+    """Elements from one pixel of the (N, h, w, c) view `t` to the next, when
+    its pixels lie at one stride with their channels dense; else None."""
+    N, h, w, c = t.shape
+    ps = t.stride(2) if w > 1 else c
+    if t.stride(3) != 1 and c > 1:
+        return None
+    if (h > 1 and t.stride(1) != w * ps) or (N > 1 and t.stride(0) != h * w * ps):
+        return None
+    return ps
+
+
+def grid_sample_nhwc(imgs: torch.Tensor, grids: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Bilinear, zero-padded, align_corners=False sample.
 
     Args:
         imgs: (N, H, W, C) float32 or bfloat16; grids: (N, h, w, 2) float32
-            with (x, y) in [-1, 1]; any h x w.
+            with (x, y) in [-1, 1]; any h x w. The grid may be a view whose
+            pixels lie at one stride (e.g. `flows[..., 0, :]` of a dense
+            (N, h, w, J, 2) tensor).
+        out: optional (N, h, w, C) float32 view to write into, its pixels at
+            one stride with dense channels (e.g. `x[..., :C]` of a dense
+            (N, h, w, C') tensor).
 
     Returns:
-        (N, h, w, C) float32.
+        (N, h, w, C) float32: `out` when given.
     """
     if imgs.dim() != 4 or grids.dim() != 4 or grids.shape[-1] != 2 or grids.shape[0] != imgs.shape[0]:
         raise ValueError(f"expected imgs (N, H, W, C) and grids (N, h, w, 2); got "
@@ -83,21 +105,38 @@ def grid_sample_nhwc(imgs: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"imgs must be float32 or bfloat16, got {imgs.dtype}")
     if grids.dtype != torch.float32 or grids.device != imgs.device:
         raise TypeError("grids must be float32 on the device of imgs")
+    N, H, W, C = imgs.shape
+    h, w = grids.shape[1], grids.shape[2]
+    if out is not None:
+        if tuple(out.shape) != (N, h, w, C) or out.dtype != torch.float32 or out.device != imgs.device:
+            raise ValueError(f"out must be ({N}, {h}, {w}, {C}) float32 on the device of imgs, got "
+                             f"{tuple(out.shape)} {out.dtype}")
 
     if not use_kernel(imgs):
-        return grid_sample_plain(imgs, grids)
+        res = grid_sample_plain(imgs, grids)
+        return res if out is None else out.copy_(res)
 
-    N, H, W, C = imgs.shape
+    out_ps = None if out is None else _pixel_stride(out)
+    if out is not None and out_ps is None:
+        raise ValueError(f"out must have its pixels at one stride, got strides {out.stride()}")
+    if out is None:
+        out = torch.empty((N, h, w, C), dtype=torch.float32, device=imgs.device)
+        out_ps = C
+    grid_ps = _pixel_stride(grids)
+    if grid_ps is None or grid_ps % 2 or grids.data_ptr() % 8:
+        grids, grid_ps = grids.contiguous(), 2
     # one image broadcast over the batch (`expand`) is read in place, stride 0
-    shared = N > 1 and imgs.stride(0) == 0 and imgs[0].is_contiguous()
+    shared = N == 1 or imgs.stride(0) == 0
     if not shared:
         imgs = imgs.contiguous()
-    grids = grids.contiguous()
-    h, w = grids.shape[1], grids.shape[2]
-    out = torch.empty((N, h, w, C), dtype=torch.float32, device=imgs.device)
+    elif imgs.stride()[1:] != (W * C, C, 1):
+        imgs = imgs[:1].contiguous().expand(N, H, W, C)
+    # the rgb4 path: a shared f32 RGB image, repacked to 4 channels per call
+    img4 = (torch.empty((H * W, 4), dtype=torch.float32, device=imgs.device)
+            if shared and C == 3 and imgs.dtype == torch.float32 else None)
     err = _lib().grid_sample_nhwc_launch(
         imgs.data_ptr(), int(imgs.dtype == torch.bfloat16), 0 if shared else H * W * C,
-        grids.data_ptr(), out.data_ptr(),
+        grids.data_ptr(), grid_ps, out.data_ptr(), out_ps, None if img4 is None else img4.data_ptr(),
         N, H, W, C, h, w, torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, "grid_sample_nhwc")
     grid_sample_nhwc.launches += 1

@@ -23,7 +23,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "--shared", "-Xcompiler", "-fPIC")
-SOURCES = ("raster_bin", "raster", "raster_table", "grid_sample")
+SOURCES = ("raster_bin", "raster", "raster_table_bin", "raster_table", "grid_sample")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -3,10 +3,20 @@
 Inputs are made with numpy from a seed and handed to both packages as numpy
 arrays; the JAX package runs on the CPU, its Pallas kernels in interpret mode.
 """
+import os
+import subprocess
+
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PRETRAINED_G = os.path.join(ROOT, "assets", "lwg_pretrained_G.npz")
+# the published generator weights in this repository's history (assets/WEIGHTS.md)
+PRETRAINED_G_BLOB = "1448015:assets/lwg_pretrained_G.npz"
+_restored: dict[str, str] = {}
 
 NARROW_CFG = {
     "BGNet": {"num_filters": [8, 16, 16, 32], "n_res_block": 2},
@@ -18,6 +28,29 @@ FULL_CFG = {
     "SIDNet": {"num_filters": [64, 128, 256], "n_res_block": 6},
     "TSFNet": {"num_filters": [64, 128, 256], "n_res_block": 6},
 }
+
+
+def pretrained_generator_npz(tmp_path_factory) -> str:
+    """Path of `lwg_pretrained_G.npz`: the file in `assets/` when it is on
+    disk, else its blob from git history, written once per test session into
+    the session's temporary directory (never into `assets/`, and nothing is
+    staged). Skips only outside a git work tree or when the object is missing."""
+    if os.path.exists(PRETRAINED_G):
+        return PRETRAINED_G
+    if "G" not in _restored:
+        def git(*args, **kw):
+            return subprocess.run(["git", *args], cwd=ROOT, **kw)
+
+        inside = git("rev-parse", "--is-inside-work-tree", capture_output=True, text=True)
+        if inside.returncode != 0 or inside.stdout.strip() != "true":
+            pytest.skip("lwg_pretrained_G.npz is not on disk and this is no git work tree")
+        if git("cat-file", "-e", PRETRAINED_G_BLOB, capture_output=True).returncode != 0:
+            pytest.skip(f"lwg_pretrained_G.npz is not on disk and git has no {PRETRAINED_G_BLOB}")
+        path = str(tmp_path_factory.mktemp("weights") / "lwg_pretrained_G.npz")
+        with open(path, "wb") as f:
+            git("cat-file", "blob", PRETRAINED_G_BLOB, stdout=f, check=True)
+        _restored["G"] = path
+    return _restored["G"]
 
 
 def t(a, dtype=torch.float32) -> torch.Tensor:

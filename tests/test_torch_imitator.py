@@ -35,12 +35,12 @@ def _close(a, b, frac=0.995, tol=1e-3, mean_tol=1e-4):
     assert d.mean() < mean_tol, f"mean abs diff {d.mean()}"
 
 
-@pytest.fixture(scope="module")
-def world():
+def _world(size):
+    """Composer, generator and source cache at `size` in both packages."""
     jm, tm = small_models()
     ja, ta = jmesh.load_assets(jm), tmesh.load_assets(tm, device="cpu")
-    jcomp = jfc.make_composer(jm, ja, image_size=S, out_dilate_ks=9)
-    tcomp = tfc.make_composer(tm, ta, image_size=S, out_dilate_ks=9)
+    jcomp = jfc.make_composer(jm, ja, image_size=size, out_dilate_ks=9)
+    tcomp = tfc.make_composer(tm, ta, image_size=size, out_dilate_ks=9)
 
     jgen = jbuild("AttLWB-SPADE", NARROW_CFG)
     z = jnp.zeros
@@ -51,13 +51,18 @@ def world():
     tckpt.load_generator_params(tgen, flatten_flax(params))
 
     rng = np.random.RandomState(0)
-    src_img = rng.uniform(-1, 1, (1, NS, S, S, 3)).astype(np.float32)
+    src_img = rng.uniform(-1, 1, (1, NS, size, size, 3)).astype(np.float32)
     src_smpl = thetas(NS, seed=1, pose_scale=0.05).reshape(1, NS, 85)
     jcache = jax.jit(lambda p, si, ss: jimit.setup_source(jcomp, jgen, p, si, ss))(
         params, jnp.asarray(src_img), jnp.asarray(src_smpl))
     tcache = timit.setup_source(tcomp, tgen, t(src_img), t(src_smpl))
     return dict(jm=jm, tm=tm, jcomp=jcomp, tcomp=tcomp, jgen=jgen, tgen=tgen, params=params,
                 jcache=jcache, tcache=tcache, src_img=src_img, src_smpl=src_smpl)
+
+
+@pytest.fixture(scope="module")
+def world():
+    return _world(S)
 
 
 def test_composer_uv_raster_matches(world):
@@ -189,3 +194,25 @@ def test_reference_precision_sets_and_restores_tf32_flags():
         assert not torch.backends.cudnn.allow_tf32
         assert not torch.backends.cuda.matmul.allow_tf32
     assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == before
+
+
+def test_table_route_off_its_tile_takes_the_exact_branch(monkeypatch):
+    """`IPERCORE_CSR_RASTER=0` at S = 64, not a multiple of the 8x128 table
+    tile: the frame geometry takes the unfused `render_smpl_info` +
+    `cal_bc_transform` branch, as the JAX package does off its Pallas route,
+    and the frames equal JAX's at the tolerances above."""
+    monkeypatch.setenv("IPERCORE_CSR_RASTER", "0")
+    w = _world(64)
+    tgt = timit.prepare_target_smpls(w["tm"], w["tcache"], thetas(2, seed=5))
+    j_in, j_tst, j_info = jimit.make_frame_inputs(w["jcomp"], w["jcache"], jnp.asarray(tgt))
+    t_in, t_tst, t_info = timit.make_frame_inputs(w["tcomp"], w["tcache"], t(tgt))
+    assert "wim" in t_info  # the unfused branch
+    assert t_in.shape == (2, 64, 64, 6) and t_tst.shape == (2, NS, 64, 64, 2)
+    assert (n(t_info["fim"]) == np.asarray(j_info["fim"])).mean() >= 0.999
+    _close(t_in, j_in)
+    _close(t_tst, j_tst)
+    jp, jmask = jax.jit(lambda p, c, s: jimit.synthesize_frames(w["jcomp"], w["jgen"], p, c, s))(
+        w["params"], w["jcache"], jnp.asarray(tgt))
+    tp, tmask = timit.synthesize_frames(w["tcomp"], w["tgen"], w["tcache"], t(tgt))
+    _close(tp, jp)
+    _close(tmask, jmask)

@@ -1,8 +1,6 @@
 """Networks and the weight carrier: a generator initialised by JAX, its
 weights carried across by `flax_params_to_torch`, the same numpy inputs through
 both packages (CPU)."""
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -17,9 +15,15 @@ from ipercore_tpu_torch.models.networks import blocks as tblocks
 from ipercore_tpu_torch.models.networks import build_generator as tbuild
 from ipercore_tpu_torch.utils import checkpoint as tckpt
 
-from tests.test_torch_common import FULL_CFG, NARROW_CFG, flatten_flax, n, t, unflatten_to_jax
-
-PRETRAINED = os.path.join(os.path.dirname(__file__), "..", "assets", "lwg_pretrained_G.npz")
+from tests.test_torch_common import (
+    FULL_CFG,
+    NARROW_CFG,
+    flatten_flax,
+    n,
+    pretrained_generator_npz,
+    t,
+    unflatten_to_jax,
+)
 
 
 def _init_jax(cfg, S=32, ns=2, stride=1):
@@ -254,16 +258,39 @@ def test_full_width_forward_tsf_with_seeded_weights(full_flat):
     assert n(img).std() > 0.05  # the seeded net is not degenerate
 
 
-def test_pretrained_npz_loads_strictly():
-    if not os.path.exists(PRETRAINED):
-        pytest.skip("assets/lwg_pretrained_G.npz is not on disk (it is untracked; "
-                    "see assets/WEIGHTS.md for how to restore it)")
-    flat = tckpt.load_flat_npz(PRETRAINED)
+@pytest.fixture(scope="module")
+def pretrained_flat(tmp_path_factory):
+    """The published generator weights (on disk, or restored from git history)."""
+    return tckpt.load_flat_npz(pretrained_generator_npz(tmp_path_factory))
+
+
+def test_pretrained_npz_loads_strictly(pretrained_flat):
+    flat = pretrained_flat
     gen = tbuild("AttLWB-SPADE", FULL_CFG, device="cpu")
     tckpt.load_generator_params(gen, flat)
     assert len(flat) == 221
     w = gen.state_dict()["bg_net.Conv_0.weight"]
     np.testing.assert_array_equal(n(w), flat["params/bg_net/Conv_0/kernel"].transpose(3, 2, 0, 1))
+
+
+def test_full_width_forward_tsf_with_pretrained_weights(pretrained_flat):
+    """The published weights through `forward_src` + `forward_tsf` in both
+    packages, on the inputs of the seeded test above (64^2, T = 1, ns = 1),
+    at its tolerance of 1e-3."""
+    jgen = jbuild("AttLWB-SPADE", FULL_CFG)
+    params = unflatten_to_jax(pretrained_flat)
+    tgen = tbuild("AttLWB-SPADE", FULL_CFG, device="cpu")
+    tckpt.load_generator_params(tgen, pretrained_flat)
+    d = _inputs(9, S=64, ns=1, T=1)
+    enc_r, res_r = jgen.apply(params, jnp.asarray(d["src"]), True, method=jgen.forward_src)
+    img_r, mask_r = jgen.apply(params, jnp.asarray(d["tsf"]), enc_r, res_r, jnp.asarray(d["Tst"]),
+                               method=jgen.forward_tsf)
+    with torch.no_grad():
+        enc, res = tgen.forward_src(t(d["src"]))
+        img, mask = tgen.forward_tsf(t(d["tsf"]), enc, res, t(d["Tst"]))
+    np.testing.assert_allclose(n(img), np.asarray(img_r), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(n(mask), np.asarray(mask_r), atol=1e-3, rtol=0)
+    assert n(img).std() > 0.05
 
 
 @pytest.mark.parametrize("name", ["AttLWB-AdaIN", "AddLWB", "InputConcat", "TextureWarping"])

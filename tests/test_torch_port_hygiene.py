@@ -115,16 +115,17 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
 
     monkeypatch.setattr(cuda_build, "load_library", no_build)
     wrappers = (trc.raster_flows, trc.raster_fim, trc.raster_flows_table, tsc.grid_sample_nhwc,
-                trc.prepare_raster)
+                trc.prepare_raster, trc.prepare_table)
     before = tuple(w.launches for w in wrappers)
     fv = torch.rand(1, 6, 3, 3) * 2 - 1
     fv[..., 2] += 2
     trc.raster_flows(fv, torch.rand(2, 6, 3, 2), 16, with_stats=True)
     trc.raster_fim(fv, 16, with_stats=True)
     trc.raster_flows_table(fv, torch.rand(2, 6, 3, 2), 128)
+    trc.prepare_table(fv, 128)
     tsc.grid_sample_nhwc(torch.rand(1, 4, 4, 3), torch.rand(1, 5, 5, 2) * 2 - 1)
     after = tuple(w.launches for w in wrappers)
-    assert before == after == (0, 0, 0, 0, 0) and all(isinstance(c, int) for c in after)
+    assert before == after == (0,) * 6 and all(isinstance(c, int) for c in after)
 
 
 def test_dispatch_sends_cuda_tensors_to_the_kernel():

@@ -193,3 +193,98 @@ def test_cpu_tensors_do_not_count_launches():
     before = trc.raster_flows_table.launches
     trc.raster_flows_table(t(scene())[None], torch.zeros((1, 64, 3, 2)), 128)
     assert trc.raster_flows_table.launches == before == 0
+
+
+def _tri(x0, y0, size, z):
+    """A right triangle with its corner at (x0, y0), legs `size`, depths z (3,)."""
+    return [[x0, y0, z[0]], [x0 + size, y0, z[1]], [x0, y0 + size, z[2]]]
+
+
+def tie_scene() -> np.ndarray:
+    """Faces of one 8x128 tile (the top-left one at 128^2) whose minimum
+    depths tie: ids 1, 3 and 4 at 2.0, ids 0 and 2 at 1.5 and 3.0; the table
+    must hold 0, 1, 3, 4, 2."""
+    z = [[1.5, 2.5, 2.5], [2.0, 2.0, 2.0], [3.0, 3.0, 3.5], [2.5, 2.0, 2.5], [2.0, 3.0, 2.0]]
+    return np.asarray([_tri(-0.99 + 0.3 * i, -0.99, 0.05, z[i]) for i in range(5)], np.float32)
+
+
+def signed_zero_scene() -> np.ndarray:
+    """Minimum depths +0.0 (id 0), -0.0 (id 1) and -1.0 (id 2) in one tile:
+    -0.0 equals +0.0, as argsort compares them, so the table is 2, 0, 1."""
+    z = [[0.0, 2.0, 2.0], [-0.0, 2.0, 2.0], [-1.0, 2.0, 2.0]]
+    return np.asarray([_tri(-0.99 + 0.3 * i, -0.99, 0.05, z[i]) for i in range(3)], np.float32)
+
+
+TABLE_CASES = {
+    "scene": (scene, 128, 128),
+    "overflow_scene": (overflow_scene, 128, 32),
+    "overflow_scene_k8": (overflow_scene, 128, 8),
+    "tie_scene": (tie_scene, 128, 16),
+    "signed_zero_scene": (signed_zero_scene, 128, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(TABLE_CASES))
+def test_device_binning_mirror_equals_plain_binning_and_jax(case):
+    """`prepare_table_plain`, the mirror of the device binning (its 64-bit
+    sort key), builds the tables of `bin_faces_table` and of JAX `_bin_faces`,
+    and the walk's work items from them."""
+    make, S, k = TABLE_CASES[case]
+    fv = make()
+    plan = trc.prepare_table_plain(t(fv)[None], S, k)
+    bins = trc.bin_faces_table(t(fv)[None], S, k)
+    for name in ("ids", "kept", "true_counts"):
+        np.testing.assert_array_equal(n(getattr(plan.bins, name)), n(getattr(bins, name)), err_msg=name)
+    _assert_bins_equal(fv, S, k, plan.bins, 0)
+    kept = n(plan.bins.kept[0]).astype(np.int64)
+    per_tile = trc.TABLE_PARTS * -(-kept // trc.TABLE_ITEM)
+    np.testing.assert_array_equal(n(plan.items[0]), np.concatenate([[0], np.cumsum(per_tile)]))
+    stats = trc.table_stats(plan)
+    assert stats == trc.bin_faces_table(t(fv)[None], S, k, with_stats=True).stats
+    if case == "tie_scene":
+        np.testing.assert_array_equal(n(plan.bins.ids[0, 0, :5]), [0, 1, 3, 4, 2])
+    if case == "signed_zero_scene":
+        np.testing.assert_array_equal(n(plan.bins.ids[0, 0, :3]), [2, 0, 1])
+    if case == "overflow_scene_k8":
+        assert stats["n_overflow_tiles"] >= 1 and stats["max_tile_load"] > 8
+
+
+def test_device_binning_mirror_on_body_frames_at_512():
+    fv = body_frames_512()
+    plan = trc.prepare_table_plain(t(fv), 512, 2048)
+    bins = trc.bin_faces_table(t(fv), 512, 2048)
+    for name in ("ids", "kept", "true_counts"):
+        assert torch.equal(getattr(plan.bins, name), getattr(bins, name)), name
+    assert trc.table_stats(plan)["n_overflow_tiles"] >= 1
+    geom, _ = trc.face_geometry(t(fv))
+    assert torch.equal(plan.geom, geom)
+
+
+def test_table_depth_key_orders_as_floats():
+    z = torch.tensor([-np.inf, -3.0, -1e-30, -0.0, 0.0, 1e-30, 0.5, 2.0, np.inf])
+    key = trc.table_depth_key(z)
+    assert bool((key[1:] >= key[:-1]).all())
+    assert int(key[3]) == int(key[4])  # -0.0 == +0.0
+    assert bool((key[1:3] < key[2:4]).all()) and bool((key[4:] < torch.cat([key[5:], key[-1:] + 1])).all())
+    assert int(key.max()) < 2 ** 32 and int(key.min()) >= 0
+
+
+def test_equal_depth_pixels_pick_the_face_jax_picks():
+    """Two coplanar faces at one constant depth overlap: every pixel they
+    share is an exact depth tie, which the entry earlier in the table (equal
+    minimum depth: the lower id, face 1) wins, in the port and in JAX K4 in
+    interpret mode."""
+    fv = np.asarray([[[0.5, 0.5, 3.0], [0.9, 0.5, 3.0], [0.5, 0.9, 3.0]],
+                     [[-0.6, -0.6, 1.0], [0.4, -0.5, 1.0], [-0.2, 0.5, 1.0]],
+                     [[-0.5, -0.7, 1.0], [0.5, -0.6, 1.0], [0.0, 0.6, 1.0]]], np.float32)
+    aux = np.random.RandomState(4).uniform(-1, 1, (1, 3, 3, 2)).astype(np.float32)
+    jfim, jflows = rasterize_flows_pallas(jnp.asarray(fv), jnp.asarray(aux), 128, k=16, chunk=8,
+                                          interpret=True)
+    fim, flows = trc.raster_flows_table(t(fv)[None], t(aux), 128, k=16)
+    np.testing.assert_array_equal(n(fim[0]), np.asarray(jfim))
+    np.testing.assert_allclose(n(flows[0]), np.asarray(jflows), atol=1e-5, rtol=0)
+    assert (n(fim[0]) == 1).sum() > 100 and (n(fim[0]) == 2).sum() > 10  # face 2 only off face 1
+    # the tie decides: with face 2's depth a little nearer, it takes face 1's pixels
+    fv[2, :, 2] = 0.999
+    nearer, _ = trc.raster_flows_table(t(fv)[None], t(aux), 128, k=16)
+    assert (n(nearer[0]) == 1).sum() < (n(fim[0]) == 1).sum() // 2

@@ -120,3 +120,38 @@ def test_merge_uv_img():
     vis = (rng.rand(3, 8, 8, 1) > 0.5).astype(np.float32)
     ref = np.asarray(jfc.merge_uv_img(jnp.asarray(uv), jnp.asarray(vis)))
     np.testing.assert_allclose(n(tfc.merge_uv_img(t(uv), t(vis))), ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("hw", [(16, 32), (13, 11)])
+def test_grid_sample_strided_grid_and_out_view_match_pallas_interpret(hw):
+    """The main path's call: the grid read through its pixel stride inside a
+    (N, h, w, J, 2) flows tensor, the result written into the first three
+    channels of a (N, h, w, 6) buffer whose other channels stay as they were."""
+    img, grid = _img_grid(3, seed=7, N=2, H=16, W=16, h=hw[0], w=hw[1])
+    ref = np.asarray(grid_sample_pallas(jnp.asarray(img[:1]).repeat(2, 0), jnp.asarray(grid),
+                                        interpret=True))
+    flows = torch.full((2,) + hw + (3, 2), 7.0)
+    flows[..., 1, :] = t(grid)
+    buf = torch.full((2,) + hw + (6,), 5.0)
+    out = tsc.grid_sample_nhwc(t(img[:1]).expand(2, -1, -1, -1), flows[..., 1, :], out=buf[..., :3])
+    assert out.data_ptr() == buf.data_ptr()
+    np.testing.assert_allclose(n(buf[..., :3]), ref, atol=1e-5, rtol=0)
+    assert (n(buf[..., 3:]) == 5.0).all()
+    np.testing.assert_array_equal(n(buf[..., :3]), n(tsc.grid_sample_nhwc(t(img[:1]).expand(2, -1, -1, -1),
+                                                                          t(grid))))
+
+
+def test_grid_sample_out_must_fit():
+    img, grid = _img_grid(3, seed=2)
+    with pytest.raises(ValueError):
+        tsc.grid_sample_nhwc(t(img), t(grid), out=torch.zeros(2, 17, 15, 4))
+    with pytest.raises(ValueError):
+        tsc.grid_sample_nhwc(t(img), t(grid), out=torch.zeros(2, 17, 15, 3, dtype=torch.float64))
+
+
+def test_pixel_stride_of_views():
+    flows = torch.zeros(2, 5, 6, 3, 2)
+    assert tsc._pixel_stride(flows[..., 0, :]) == 6
+    assert tsc._pixel_stride(torch.zeros(2, 5, 6, 6)[..., :3]) == 6
+    assert tsc._pixel_stride(torch.zeros(2, 5, 6, 2)) == 2
+    assert tsc._pixel_stride(torch.zeros(2, 6, 5, 2).transpose(1, 2)) is None
