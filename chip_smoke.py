@@ -13,8 +13,12 @@ source views, 16 target frames in chunks of 8) through the entry points a
 user calls and checks its output. Then, each with the launch counts set to 0
 before it and read after it: the table route (`IPERCORE_CSR_RASTER=0`, one
 chunk), temporal mode (8 frames, a temporal generator on the same weights),
-and the three services `imitate`, `novel_view` and `swap` on a synthetic
-processed directory written to a temporary directory. Reads no weight file.
+the three services `imitate`, `novel_view` and `swap` on a synthetic
+processed directory written to a temporary directory, `personalize` on that
+directory followed by `imitate` with the personalized weights, and the
+personalization train step at full width (G + D `patch_global`, VGG19 and
+Sphere20a losses, Adam; 512^2, 2 sources, 1 target) with K3 on its batches.
+Reads no weight file: every network is seeded.
 Every phase prints one JSON line; any failed check raises, so the exit code
 is non-zero. Needs one GPU; exits with code 2 when there is none.
 """
@@ -51,6 +55,10 @@ REPLACES = {
     "raster_flows_table": "ipercore_tpu/ops/rasterizer_pallas.py:779",
 }
 TABLE_K = 2048  # faces per 8x128 tile of the table route, the JAX default
+# the personalization default discriminator (`patch_global`) at its published width
+DIS_CFG = {"ndf": 64, "n_layers": 4, "max_nf_mult": 8, "use_sigmoid": False}
+NT = 1  # target frames per train step (`time_step`)
+TRAIN_WARMUP, TRAIN_STEPS, SERVICE_ITERS = 3, 20, 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -651,9 +659,11 @@ def device_breakdown(fn) -> dict:
             kinds["kernels"] += us
         elif any(w in name for w in ("conv", "cudnn", "gemm", "xmma", "cutlass", "winograd",
                                      "implicit", "nchwtonhwc", "nhwctonchw", "dgrad",
-                                     "fft", "dse::", "pointwise_mult_and_sum_complex")):
+                                     "fft", "dse::", "pointwise_mult_and_sum_complex")) \
+                or ("gemv" in name and "float2" in name):
             # cuDNN's f32 algorithms include FFT convolutions (DSE::*_fft*,
-            # pointwise_mult_and_sum_complex) and dgrad engines for ConvTranspose
+            # pointwise_mult_and_sum_complex, complex (float2) gemv and gemm
+            # between the transforms) and dgrad engines for ConvTranspose
             kinds["convolutions"] += us
         elif any(w in name for w in ("sort", "radix", "scan", "searchsorted", "repeat_interleave")):
             kinds["binning_sort_scan"] += us
@@ -976,7 +986,229 @@ def services_phase(device) -> dict:
                   f"{name}: launches {launches}")
             out[name] = {"wall_s": seconds, "frames": n_frames, "max_lsb_vs_in_memory": lsb,
                          "launches": launches}
+        out.update(personalize_service(opt, root, device, seeded=written(root, "alice-dance")))
     return out
+
+
+def personalize_service(opt, root: str, device, seeded) -> dict:
+    """`personalize` on the subject of the services' directory, then `imitate`
+    with the personalized weights (its frames must differ from `seeded`, the
+    frames of the seeded weights), then `personalize` again (a skip)."""
+    from ipercore_tpu_torch.services import run_imitator as ri
+    from ipercore_tpu_torch.services.personalization import personalize, personalized_path
+    from ipercore_tpu_torch.utils import video as vid
+
+    opt.src_path = "path?=alice,name?=alice"
+    opt.Train.update(niters_or_epochs_no_decay=SERVICE_ITERS, niters_or_epochs_decay=0)
+    others = ("raster_flows_csr", "grid_sample_nhwc", "raster_flows_table", "table_binning")
+    out = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    path = personalize(opt, device=device)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    check(path == personalized_path(opt) and os.path.exists(path), f"personalize: nothing at {path}")
+    # the UV template once, then the sources and the target of every step
+    check(launches["raster_fim"] == 1 + 2 * SERVICE_ITERS == launches["raster_binning"]
+          and not any(launches[k] for k in others), f"personalize: launches {launches}")
+    out["personalize"] = {"wall_s": seconds, "iterations": SERVICE_ITERS, "launches": launches}
+
+    zero_counts()
+    t0 = time.perf_counter()
+    ri.imitate(opt, device=device)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    d = os.path.join(root, "primitives", "alice-dance", "synthesis")
+    frames = np.stack([vid.read_png(os.path.join(d, f)) for f in sorted(os.listdir(d))
+                       if f.startswith("pred_")]).astype(np.int32)
+    check(frames.shape == seeded.shape, f"imitate after personalize: frames {frames.shape} vs {seeded.shape}")
+    lsb = int(np.abs(frames - seeded).max())
+    # more than the 1 LSB by which two runs of the same weights may differ
+    check(lsb > 1, "imitate after personalize: the frames equal the seeded weights' frames")
+    check(launches["raster_flows_csr"] >= 1 and launches["grid_sample_nhwc"] >= 1 and launches["raster_fim"] >= 2,
+          f"imitate after personalize: launches {launches}")
+    out["imitate_personalized"] = {"wall_s": seconds, "frames": int(frames.shape[0]),
+                                   "max_lsb_vs_seeded_weights": lsb, "launches": launches}
+
+    stamp = os.stat(path).st_mtime_ns
+    zero_counts()
+    t0 = time.perf_counter()
+    again = personalize(opt, device=device)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    check(again == path and os.stat(path).st_mtime_ns == stamp and not any(launches.values()),
+          f"a second personalize did not skip: launches {launches}")
+    out["personalize_again"] = {"wall_s": seconds, "skipped": True}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the personalization train step at full width
+# ---------------------------------------------------------------------------
+
+def train_batch(device) -> dict:
+    """One personalization batch of the step's shapes: NS sources then NT
+    targets, SMPLs posed like the main path's targets, ring masks
+    (background = 1), a pseudo-background."""
+    rng = np.random.RandomState(5)
+    n = NS + NT
+    yy, xx = np.mgrid[:SIZE, :SIZE]
+    ring = ((yy - SIZE / 2) ** 2 + (xx - SIZE / 2) ** 2 > (SIZE / 3) ** 2).astype(np.float32)
+    batch = {"images": rng.uniform(-1, 1, (1, n, SIZE, SIZE, 3)).astype(np.float32),
+             "smpls": target_smpls(n, 5)[None],
+             "masks": np.broadcast_to(ring[None, None, :, :, None], (1, n, SIZE, SIZE, 1)).copy(),
+             "bg": rng.uniform(-1, 1, (1, SIZE, SIZE, 3)).astype(np.float32)}
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def state_agreement(a, b, lr: float, what: str) -> dict:
+    """Two train states after one step from the same state: the clipped
+    gradients (first moment over 1 - b1) within 1 % (L2, relative) with 99 %
+    of the elements within 1e-3 of the largest; every parameter within 2 * lr
+    (Adam's first step moves a weight by about lr * sign(g), so a gradient
+    near 0 may flip it) and 97 % within 1e-6."""
+    out = {}
+    for net, pa, pb, oa, ob in (("G", a.params_G, b.params_G, a.opt_G, b.opt_G),
+                                ("D", a.params_D, b.params_D, a.opt_D, b.opt_D)):
+        ga = torch.cat([oa.mu[k].reshape(-1) for k in oa.mu]) * 2
+        gb = torch.cat([ob.mu[k].reshape(-1) for k in oa.mu]) * 2
+        dp = torch.cat([(pa[k] - pb[k]).reshape(-1) for k in pa]).abs()
+        dg = (ga - gb).abs()
+        row = {"grad_l2_rel": float((ga - gb).norm() / gb.norm()),
+               "grad_within_1e-3_of_max": float((dg <= 1e-3 * gb.abs().max()).double().mean()),
+               "param_max_abs_diff": float(dp.max()),
+               "param_within_1e-6": float((dp <= 1e-6).double().mean())}
+        check(row["grad_l2_rel"] <= 1e-2 and row["grad_within_1e-3_of_max"] >= 0.99
+              and row["param_max_abs_diff"] <= 2 * lr * 1.001 and row["param_within_1e-6"] >= 0.97,
+              f"{what}: {net} {row}")
+        out[net] = row
+    return out
+
+
+def train_rig(comp, batch, device):
+    """The personalization step's networks at full width with seeded weights
+    (G seed 0, D 1, VGG19 2, Sphere20a 3): (initial state, step function
+    state -> (state, metrics) on `batch`, face crop size)."""
+    from ipercore_tpu_torch.models.networks import build_discriminator, build_generator
+    from ipercore_tpu_torch.models.networks import criterions as C
+    from ipercore_tpu_torch.trainers import lwg_trainer as T
+    from ipercore_tpu_torch.utils.checkpoint import load_generator_params, seeded_flat_params
+
+    gen = build_generator("AttLWB-SPADE", CFG, device=device)
+    load_generator_params(gen, seeded_flat_params(CFG, 0))
+    dis = build_discriminator("patch_global", DIS_CFG, device=device)
+    load_generator_params(dis, seeded_flat_params(dis, 1))
+    vgg = C.build_vgg(device=device)
+    load_generator_params(vgg, seeded_flat_params(vgg, 2))
+    face, hw = C.build_face_net("sphere20a", device=device)
+    load_generator_params(face, seeded_flat_params(face, 3))
+    cfg = T.TrainConfig()
+    step = lambda st: T.train_step(st, batch, comp, gen, dis, vgg, face, cfg, ns=NS)
+    return T.create_train_state(gen, dis, cfg), step, hw
+
+
+def train_phase(device) -> dict:
+    from ipercore_tpu_torch.models import flow_composition as fc
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.models.mesh import load_assets
+    from ipercore_tpu_torch.ops import rasterizer as rz
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+    from ipercore_tpu_torch.ops.dispatch import force_plain
+    from ipercore_tpu_torch.trainers import lwg_trainer as T
+
+    model = smpl_mod.template_model(device=device)
+    comp = fc.make_composer(model, load_assets(model, device=device), image_size=SIZE, out_dilate_ks=51)
+    batch = train_batch(device)
+
+    # K3 on the step's batches: its sources and its targets
+    k3 = {}
+    for name, theta in (("sources", batch["smpls"][0, :NS]), ("targets", batch["smpls"][0, NS:])):
+        d = smpl_mod.get_details(model, theta)
+        fv = rz.verts_to_faces(rz.project_verts(d["verts"], d["cam"]), model.faces).contiguous()
+        out, ref = rc.raster_fim(fv, SIZE), rc.raster_fim_plain(fv, SIZE)
+        raster_agreement(out.fim, ref.fim, out.wim, ref.wim, f"raster_fim/train {name}", bit_equal=True)
+        check_no_host_sync(lambda: rc.raster_fim(fv, SIZE), f"raster_fim/train {name}")
+        k3[name] = {"N": int(fv.shape[0]), "bit_equal": True,
+                    "wrapper_ms": cuda_ms(lambda: rc.raster_fim(fv, SIZE))}
+
+    # networks at full width, then one step: the first step's cost
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state0, step, hw = train_rig(comp, batch, device)
+    cfg = T.TrainConfig()
+    zero_counts()
+    state1, metrics1 = step(state0)
+    torch.cuda.synchronize()
+    first_step_s = time.perf_counter() - t0
+    launches = read_counts()
+    check(launches["raster_fim"] == 2 == launches["raster_binning"]
+          and not any(launches[k] for k in ("raster_flows_csr", "grid_sample_nhwc", "raster_flows_table")),
+          f"train step: launches {launches}")
+
+    # the kernel step against the plain step from the same state (cuDNN
+    # deterministic for this comparison only; grid_sample's backward adds with
+    # atomics either way)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sk, mk = step(state0)
+        with force_plain():
+            sp, mp = step(state0)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    loss_rel = {k: abs(float(mk[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-6) for k in mk}
+    check(max(loss_rel.values()) <= 1e-4, f"train step: kernel and plain losses differ {loss_rel}")
+    agreement = state_agreement(sk, sp, cfg.lr_g, "train step kernel vs plain")
+    del sk, sp
+
+    # steady state: CUDA events over TRAIN_STEPS steps after TRAIN_WARMUP
+    holder = [state1]
+
+    def one():
+        holder[0], m = step(holder[0])
+        return m
+
+    for _ in range(TRAIN_WARMUP):
+        one()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        metrics = one()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    two = device_breakdown(lambda: (one(), one()))
+    per_step = {k: v / 2 for k, v in two.items() if k != "top"}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    one()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    k3_per_step = read_counts()["raster_fim"]
+    syncs = host_syncs(one)
+    losses = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in losses.values()), f"train step: losses not finite {losses}")
+    moved = max(float((holder[0].params_G[k] - state0.params_G[k]).abs().max()) for k in state0.params_G)
+    moved_d = max(float((holder[0].params_D[k] - state0.params_D[k]).abs().max()) for k in state0.params_D)
+    check(moved > 0 and moved_d > 0, "train step: the parameters did not move")
+    check(int(holder[0].opt_G.count) == int(holder[0].step) == TRAIN_WARMUP + TRAIN_STEPS + 5,
+          "train step: a step was skipped as non-finite")
+    return {
+        "model": "AttLWB-SPADE", "params_G": sum(v.numel() for v in state0.params_G.values()),
+        "params_D": sum(v.numel() for v in state0.params_D.values()), "discriminator": "patch_global",
+        "size": SIZE, "ns": NS, "nt": NT, "bs": 1, "dtype": "float32", "tf32": False,
+        "face_hw": list(hw), "k3_training": k3, "launches_first_step": launches,
+        "first_step_s": first_step_s, "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+        "timed_steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP,
+        "device_ms_per_step": per_step, "device_top_kernels_two_steps": two["top"],
+        "device_busy_share": per_step["busy"] / step_ms,
+        "device_idle_share": 1 - per_step["busy"] / step_ms,
+        "peak_memory_gib": peak, "host_syncs_per_step": syncs, "k3_launches_per_step": k3_per_step,
+        "kernel_vs_plain_loss_rel_diff": loss_rel, "kernel_vs_plain_state": agreement,
+        "losses_last_step": losses, "first_step_losses": {k: float(v) for k, v in metrics1.items()},
+        "param_max_move": moved,
+    }
 
 
 def main() -> int:
@@ -1021,10 +1253,15 @@ def main() -> int:
     emit("table_route", **table)
     emit("temporal", **temporal_phase(ctx, device))
     del ctx
-    emit("services", **services_phase(device))
+    services = services_phase(device)
+    service_runs = {k: services.pop(k) for k in ("personalize", "imitate_personalized", "personalize_again")}
+    emit("services", **services)
+    train = train_phase(device)
+    emit("personalize", service=service_runs, train_step=train)
 
     # launches: K1-K3 on the main path's run, K4 on the table route's
     launches = dict(result["launches"], raster_flows_table=table["launches"]["raster_flows_table"])
+    kernels["raster_fim"]["launches_per_train_step"] = train["k3_launches_per_step"]
     line = {"kernels": [
         {"name": name, "replaces": REPLACES[name], "launches": launches[name],
          "ms": v["wrapper_ms"], **v}  # `ms`: the whole call, as a user of the wrapper pays it

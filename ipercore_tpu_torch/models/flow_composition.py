@@ -1,9 +1,10 @@
 """Flow composition: SMPL geometry -> generator inputs (UV merge, flows, conds).
 
-Twin of `ipercore_tpu/models/flow_composition.py` for the inference path: a
-function library over a static `FlowComposer` context (body model, mesh
-assets, pre-rasterized UV template). The training-time `forward`,
-`make_trans_flow` and `make_batch_trans_flow` are not ported yet.
+Twin of `ipercore_tpu/models/flow_composition.py`: a function library over a
+static `FlowComposer` context (body model, mesh assets, pre-rasterized UV
+template), for inference and for the training-phase composition (`forward`,
+`make_trans_flow`, `make_batch_trans_flow`). Its rasters go through
+`rasterize_batch`, so through the `raster_fim` kernel on a CUDA device.
 """
 from __future__ import annotations
 
@@ -242,6 +243,98 @@ def process_source(comp: FlowComposer, src_img: torch.Tensor, src_info: dict,
     input_G_bg = make_bg_inputs(comp, flat, src_info, masks).reshape(bs, ns, S, S, 4)
     input_G_bg = input_G_bg[:, primary_ids:primary_ids + 1]
     return uv_img, input_G_bg, input_G_src
+
+
+def _pick_src_f2pts(comp: FlowComposer, src_info: dict, use_selected: bool = False) -> torch.Tensor:
+    if use_selected and "selected_f2pts" in src_info:
+        return src_info["selected_f2pts"]
+    return src_info["only_vis_f2pts"] if comp.only_vis else src_info["f2pts"]
+
+
+def make_trans_flow(comp: FlowComposer, src_info: dict, ref_info: dict, bs: int, ns: int,
+                    temp_info: Optional[dict] = None, use_selected: bool = False,
+                    ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Inference-time flows: Tst (bs, ns, S, S, 2) and, with `temp_info`, Ttt
+    (bs, nt, S, S, 2). ref_info covers bs frames."""
+    S = comp.image_size
+    src_f2pts = _pick_src_f2pts(comp, src_info, use_selected)  # (bs*ns, F, 3, 2)
+    ref_fim = torch.repeat_interleave(ref_info["fim"], ns, dim=0)
+    ref_wim = torch.repeat_interleave(ref_info["wim"], ns, dim=0)
+    Tst = rz.cal_bc_transform(src_f2pts, ref_fim, ref_wim).reshape(bs, ns, S, S, 2)
+    Ttt = None
+    if temp_info is not None:
+        nt = temp_info["f2pts"].shape[0] // bs
+        t_fim = torch.repeat_interleave(ref_info["fim"], nt, dim=0)
+        t_wim = torch.repeat_interleave(ref_info["wim"], nt, dim=0)
+        Ttt = rz.cal_bc_transform(temp_info["f2pts"], t_fim, t_wim).reshape(bs, nt, S, S, 2)
+    return Tst, Ttt
+
+
+def make_batch_trans_flow(comp: FlowComposer, src_info: dict, ref_info: dict, bs: int, ns: int,
+                          nt: int, temporal: bool = False, use_selected: bool = False,
+                          ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Training-time flows: Tst (bs, nt, ns, S, S, 2) and, when temporal with
+    nt > 1, Ttt (bs, nt - 1, S, S, 2) from each reference frame to the next."""
+    S = comp.image_size
+    F_ = comp.model.faces.shape[0]
+    src_f2pts = _pick_src_f2pts(comp, src_info, use_selected).reshape(bs, ns, F_, 3, 2)
+    src_rep = src_f2pts[:, None].expand(bs, nt, ns, F_, 3, 2).reshape(-1, F_, 3, 2)
+    ref_fim = ref_info["fim"].reshape(bs, nt, S, S)
+    ref_wim = ref_info["wim"].reshape(bs, nt, S, S, 3)
+    fim_rep = ref_fim[:, :, None].expand(bs, nt, ns, S, S).reshape(-1, S, S)
+    wim_rep = ref_wim[:, :, None].expand(bs, nt, ns, S, S, 3).reshape(-1, S, S, 3)
+    Tst = rz.cal_bc_transform(src_rep, fim_rep, wim_rep).reshape(bs, nt, ns, S, S, 2)
+
+    Ttt = None
+    if temporal and nt > 1:
+        ref_f2pts = ref_info["only_vis_f2pts"] if comp.only_vis else ref_info["f2pts"]
+        prev = ref_f2pts.reshape(bs, nt, F_, 3, 2)[:, :-1].reshape(-1, F_, 3, 2)
+        nxt_fim = ref_fim[:, 1:].reshape(-1, S, S)
+        nxt_wim = ref_wim[:, 1:].reshape(-1, S, S, 3)
+        Ttt = rz.cal_bc_transform(prev, nxt_fim, nxt_wim).reshape(bs, nt - 1, S, S, 2)
+    return Tst, Ttt
+
+
+def forward(comp: FlowComposer, src_img: torch.Tensor, ref_img: torch.Tensor,
+            src_smpl: torch.Tensor, ref_smpl: torch.Tensor,
+            src_mask: Optional[torch.Tensor] = None, ref_mask: Optional[torch.Tensor] = None,
+            links_ids: Optional[torch.Tensor] = None, offsets: torch.Tensor | float = 0.0,
+            temporal: bool = False) -> dict:
+    """The training-phase composition.
+
+    Args:
+        src_img: (bs, ns, S, S, 3); ref_img: (bs, nt, S, S, 3);
+        src_smpl: (bs, ns, 85); ref_smpl: (bs, nt, 85);
+        src_mask / ref_mask: (bs, n, S, S, 1), background = 1.
+
+    Returns dict with input_G_bg / input_G_src / input_G_tsf, Tst, Ttt,
+    uv_img, src_info, ref_info.
+    """
+    bs, ns = src_img.shape[0], src_img.shape[1]
+    nt = ref_img.shape[1]
+    S = comp.image_size
+
+    src_details = smpl_mod.get_details(comp.model, src_smpl.reshape(bs * ns, -1), offsets, links_ids)
+    ref_details = smpl_mod.get_details(comp.model, ref_smpl.reshape(bs * nt, -1), offsets, links_ids)
+
+    src_masks_flat = src_mask.reshape(bs * ns, S, S, 1) if src_mask is not None else None
+    src_info = render_smpl_info(comp, src_details["verts"], src_details["cam"], masks=src_masks_flat,
+                                use_morph=True, get_uv_info=True)
+    src_info.update({k: src_details[k] for k in ("cam", "verts", "j2d")})
+    if src_masks_flat is not None:
+        src_info["masks"] = src_masks_flat
+
+    ref_info = render_smpl_info(comp, ref_details["verts"], ref_details["cam"], use_morph=False,
+                                get_uv_info=False)
+    ref_info.update({k: ref_details[k] for k in ("cam", "verts", "j2d")})
+    if ref_mask is not None:
+        ref_info["masks"] = ref_mask.reshape(bs * nt, S, S, 1)
+
+    uv_img, input_G_bg, input_G_src = process_source(comp, src_img, src_info)
+    input_G_tsf = make_tsf_inputs(comp, uv_img, ref_info)
+    Tst, Ttt = make_batch_trans_flow(comp, src_info, ref_info, bs, ns, nt, temporal=temporal)
+    return {"input_G_bg": input_G_bg, "input_G_src": input_G_src, "input_G_tsf": input_G_tsf,
+            "Tst": Tst, "Ttt": Ttt, "uv_img": uv_img, "src_info": src_info, "ref_info": ref_info}
 
 
 def add_selected_f2pts(src_info: dict, part_mask: torch.Tensor) -> dict:

@@ -32,6 +32,23 @@ def _deconv(cin: int, cout: int, bias: bool = True) -> nn.ConvTranspose2d:
     return nn.ConvTranspose2d(cin, cout, 4, stride=2, padding=1, bias=bias)
 
 
+class FrozenBatchNorm(nn.Module):
+    """Inference-mode BatchNorm over the last axis (NHWC), holding torch's
+    parameter set (scale, bias, running mean and variance) as parameters
+    under the Flax names, so a converted checkpoint carries over by name."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.mean = nn.Parameter(torch.zeros(features))
+        self.var = nn.Parameter(torch.ones(features))
+
+    def forward(self, x):
+        return (x - self.mean) * (self.scale * torch.rsqrt(self.var + self.eps)) + self.bias
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Parameter-free instance norm over the spatial dims of NHWC (biased
     variance, as `InstanceNorm2d(affine=False)`)."""

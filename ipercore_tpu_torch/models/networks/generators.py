@@ -2,8 +2,9 @@
 
 Twin of `ipercore_tpu/models/networks/generators.py`. Only the default
 generator of the repo, AttLWB-SPADE, is ported, with and without temporal
-feedback; the other registry names raise `NotImplementedError` naming the
-later slice.
+feedback, for inference (`forward_src` / `forward_tsf`) and for training
+(`forward` over nt time steps); the other registry names raise
+`NotImplementedError` naming the later slice.
 
 Config mirrors the JAX package's:
 {"BGNet": {...}, "SIDNet": {...}, "TSFNet": {...}} with num_filters / n_res_block.
@@ -204,6 +205,49 @@ class LWBGenerator(nn.Module):
                 pre_warped=True)
         x = self.tsf_net_dec(x, enc_outs)
         return self.tsf_heads(x)
+
+    # --- full training-style forward ------------------------------------------
+    def forward(self, bg_inputs, src_inputs, tsf_inputs, Tst, Ttt=None, only_tsf: bool = True):
+        """Full forward over nt time steps.
+
+        Args:
+            bg_inputs: (bs, nbg, h, w, 4).
+            src_inputs: (bs, ns, h, w, 6).
+            tsf_inputs: (bs, nt, h, w, 6).
+            Tst: (bs, nt, ns, h, w, 2); Ttt: (bs, nt - 1, h, w, 2) or None.
+                A temporal generator feeds step t the SIDNet features of its
+                prediction at t - 1, warped by Ttt[:, t - 1].
+
+        Returns:
+            (bg_img (bs, nbg, h, w, 3), tsf_imgs (bs, nt, h, w, 3),
+            tsf_masks (bs, nt, h, w, 1)); with only_tsf=False
+            (bg_img, src_imgs, src_masks, tsf_imgs, tsf_masks), the source
+            reconstructions (bs, ns, h, w, 3) and (bs, ns, h, w, 1) included.
+        """
+        nt = tsf_inputs.shape[1]
+        bg_img = self.forward_bg(bg_inputs) if self.use_bg_net and bg_inputs is not None else None
+        if only_tsf:
+            src_enc_outs, src_res_outs = self.forward_src(src_inputs, only_enc=True)
+        else:
+            src_enc_outs, src_res_outs, src_imgs, src_masks = self.forward_src(src_inputs, only_enc=False)
+
+        tsf_imgs, tsf_masks = [], []
+        for t in range(nt):
+            temp_enc_outs = temp_res_outs = t_Ttt = None
+            if t != 0 and self.temporal and Ttt is not None:
+                prev_img = tsf_imgs[-1] * (1.0 - tsf_masks[-1])
+                prev_in = torch.cat([prev_img, tsf_inputs[:, t - 1, ..., 0:3]], dim=-1)[:, None]
+                temp_enc_outs, temp_res_outs = self.forward_src(prev_in, only_enc=True)
+                t_Ttt = Ttt[:, t - 1:t]
+            img, mask = self.forward_tsf(tsf_inputs[:, t], src_enc_outs, src_res_outs, Tst[:, t],
+                                         temp_enc_outs, temp_res_outs, t_Ttt)
+            tsf_imgs.append(img)
+            tsf_masks.append(mask)
+        tsf_imgs = torch.stack(tsf_imgs, dim=1)
+        tsf_masks = torch.stack(tsf_masks, dim=1)
+        if only_tsf:
+            return bg_img, tsf_imgs, tsf_masks
+        return bg_img, src_imgs, src_masks, tsf_imgs, tsf_masks
 
 
 GENERATOR_NAMES = (

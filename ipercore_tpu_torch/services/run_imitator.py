@@ -8,8 +8,9 @@ imitation stage for every (source, reference) pair and writes PNG frames and
 a video.
 
 What is not here: the three-stage `run_imitator` (preprocess, personalize,
-imitate) needs the perception and training stacks, which are not ported;
-`main` runs the imitation stage alone on already processed inputs.
+imitate) needs the perception stack, which is not ported; `main` runs the
+imitation stage alone on already processed inputs, after
+`services/personalization.personalize` when personalized weights are wanted.
 
 Weights: `<output_dir>/models/<model_id>/personalized.npz` when it exists,
 else `seeded_flat_params(opt.Generator, seed=0)`. (The JAX package initialises
@@ -26,7 +27,6 @@ import torch
 from ipercore_tpu_torch.models import imitator as imit
 from ipercore_tpu_torch.services.meta_info import (
     MetaProcess,
-    checkpoints_dir,
     parse_ref_input,
     parse_src_input,
 )
@@ -51,6 +51,7 @@ def build_runtime(opt, device: Device = "cuda"):
     from ipercore_tpu_torch.models import smpl as smpl_mod
     from ipercore_tpu_torch.models.mesh import load_assets
     from ipercore_tpu_torch.models.networks import build_generator
+    from ipercore_tpu_torch.services.personalization import personalized_path
     from ipercore_tpu_torch.utils.checkpoint import (
         load_flat_npz,
         load_generator_params,
@@ -70,7 +71,7 @@ def build_runtime(opt, device: Device = "cuda"):
     gen = build_generator(opt.get("gen_name", "AttLWB-SPADE"), opt.Generator,
                           temporal=bool(opt.get("temporal", False)),
                           feat_warp_stride=int(opt.get("feat_warp_stride", 1)), device=device)
-    personalized = os.path.join(checkpoints_dir(opt.output_dir, opt.model_id), "personalized.npz")
+    personalized = personalized_path(opt)
     flat = (load_flat_npz(personalized) if os.path.exists(personalized)
             else seeded_flat_params(opt.Generator, seed=0))
     load_generator_params(gen, flat)

@@ -1,24 +1,36 @@
-"""Flat-npz parameters and the weight carrier from the Flax layout.
+"""Flat-npz parameters and the weight carrier between the Flax layout and
+torch modules.
 
-Twin of the loading half of `ipercore_tpu/utils/checkpoint.py`. The JAX
-package stores a Flax parameter tree as a flat npz keyed by '/'-joined paths
-(`params/bg_net/Conv_0/kernel`). The port's modules carry the Flax module
-names, so the carrier is mechanical:
+Twin of `save_params` / `load_params` of `ipercore_tpu/utils/checkpoint.py`.
+The JAX package stores a Flax parameter tree as a flat npz keyed by
+'/'-joined paths (`params/bg_net/Conv_0/kernel`). The port's modules carry
+the Flax module names, so the carrier is mechanical:
 
-  * key `params/a/b/kernel` -> `a.b.weight`, `params/a/b/bias` -> `a.b.bias`;
+  * key `params/a/b/kernel` -> `a.b.weight`, any other `params/a/b/x` -> `a.b.x`;
   * Conv kernel (kH, kW, I, O) -> (O, I, kH, kW);
   * Flax `ConvTranspose(4x4, stride 2, "SAME")` kernel (kH, kW, I, O) ->
     flipped spatially, (I, O, kH, kW), run as
-    `conv_transpose2d(stride=2, padding=1)`.
+    `conv_transpose2d(stride=2, padding=1)`;
+  * Dense kernel (I, O) -> Linear weight (O, I).
 
-`seeded_flat_params` makes a full set of random weights in the Flax layout
-from a numpy seed, so that a run that has no weight file goes through the same
-carrier as real weights.
+`torch_params_to_flax` is its inverse, so a checkpoint the port writes is one
+the JAX package reads, and the reverse. `seeded_flat_params` makes a full set
+of random weights in the Flax layout from a numpy seed, so that a run that has
+no weight file goes through the same carrier as real weights.
 """
 from __future__ import annotations
 
+import os
+from typing import Mapping
+
 import numpy as np
 import torch
+import torch.nn as nn
+
+# the repository's weight files (`assets/WEIGHTS.md`), where the JAX package
+# looks for them too
+WEIGHTS_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "assets")
 
 
 def load_flat_npz(path: str) -> dict[str, np.ndarray]:
@@ -64,6 +76,8 @@ def flax_params_to_torch(flat: dict[str, np.ndarray], like: dict | None = None) 
                 a = np.flip(a, axis=(0, 1)).transpose(2, 3, 0, 1)
             else:
                 a = a.transpose(3, 2, 0, 1)
+        elif is_kernel and a.ndim == 2:
+            a = a.T
         out[tk] = torch.from_numpy(np.array(a, order="C"))  # a writable, dense copy
     if like is not None:
         missing = sorted(set(like) - set(out))
@@ -80,45 +94,122 @@ def flax_params_to_torch(flat: dict[str, np.ndarray], like: dict | None = None) 
     return out
 
 
-def load_generator_params(generator: torch.nn.Module, flat: dict[str, np.ndarray]) -> None:
-    """Strictly load a flat Flax parameter dict into `generator` in place."""
-    generator.load_state_dict(flax_params_to_torch(flat, like=generator.state_dict()), strict=True)
+def load_generator_params(module: torch.nn.Module, flat: dict[str, np.ndarray]) -> None:
+    """Strictly load a flat Flax parameter dict into `module` (a generator or
+    any other network of the port) in place."""
+    module.load_state_dict(flax_params_to_torch(flat, like=module.state_dict()), strict=True)
 
 
-def _flax_key_and_shape(torch_key: str, shape: tuple[int, ...]) -> tuple[str, tuple[int, ...]]:
-    """Inverse of the carrier's key/shape rule."""
+def _kernel_kind(module: nn.Module, torch_key: str) -> str | None:
+    """'conv', 'deconv' or 'dense' when `torch_key` is the weight of such a
+    layer of `module` (its Flax name is `kernel`), else None."""
+    owner, _, leaf = torch_key.rpartition(".")
+    if leaf != "weight":
+        return None
+    layer = module.get_submodule(owner) if owner else module
+    if isinstance(layer, nn.ConvTranspose2d):
+        return "deconv"
+    if isinstance(layer, nn.Conv2d):
+        return "conv"
+    if isinstance(layer, nn.Linear):
+        return "dense"
+    return None
+
+
+def _flax_entry(module: nn.Module, torch_key: str) -> tuple[str, str | None]:
+    kind = _kernel_kind(module, torch_key)
     parts = torch_key.split(".")
-    if parts[-1] == "weight":
+    if kind is not None:
         parts[-1] = "kernel"
-        if len(shape) == 4:
-            if _is_transpose(torch_key):
-                i, o, kh, kw = shape
-            else:
-                o, i, kh, kw = shape
-            shape = (kh, kw, i, o)
-    return "params/" + "/".join(parts), tuple(shape)
+    return "params/" + "/".join(parts), kind
 
 
-def seeded_flat_params(model_cfg, seed: int = 0) -> dict[str, np.ndarray]:
-    """Random AttLWB-SPADE weights in the Flax layout, from a numpy seed.
+def _flax_shape(shape: tuple[int, ...], kind: str | None) -> tuple[int, ...]:
+    if kind == "conv":
+        o, i, kh, kw = shape
+        return (kh, kw, i, o)
+    if kind == "deconv":
+        i, o, kh, kw = shape
+        return (kh, kw, i, o)
+    if kind == "dense":
+        return shape[::-1]
+    return shape
 
-    The keys and shapes are those of the generator that `model_cfg` describes
-    (221 arrays at full width). Kernels are N(0, 1) / sqrt(fan_in), which is
-    about 0.02 for the 3x3x256 convolutions that make up most of the net and
-    keeps activations at unit scale through its depth; biases are zero. The
-    arrays are drawn in sorted key order from `np.random.default_rng(seed)`.
+
+def _to_flax_layout(a: np.ndarray, kind: str | None) -> np.ndarray:
+    if kind == "conv":
+        return a.transpose(2, 3, 1, 0)
+    if kind == "deconv":
+        return np.flip(a.transpose(2, 3, 0, 1), axis=(0, 1))
+    if kind == "dense":
+        return a.T
+    return a
+
+
+def torch_params_to_flax(module: nn.Module,
+                         params: Mapping[str, torch.Tensor] | None = None) -> dict[str, np.ndarray]:
+    """The inverse carrier: `params` (state-dict keys; default the module's own
+    state dict) -> {flax key: float32 array in the Flax layout}."""
+    params = module.state_dict() if params is None else params
+    out = {}
+    for k, v in params.items():
+        key, kind = _flax_entry(module, k)
+        a = v.detach().to("cpu", torch.float32).numpy()
+        out[key] = np.ascontiguousarray(_to_flax_layout(a, kind))
+    return out
+
+
+def save_params(path: str, flat: Mapping[str, np.ndarray]) -> None:
+    """Write a flat Flax parameter dict as a compressed npz (through a
+    temporary file and a rename, as the JAX package writes it)."""
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(tmp, **flat)
+    os.replace(tmp, path)
+
+
+def load_params(path: str, like: nn.Module) -> dict[str, torch.Tensor]:
+    """Read a flat-npz checkpoint as a state dict of `like`, strictly: a
+    ValueError lists missing keys, unexpected keys and shape mismatches."""
+    return flax_params_to_torch(load_flat_npz(path), like=like.state_dict())
+
+
+def seeded_flat_params(model, seed: int = 0) -> dict[str, np.ndarray]:
+    """Random weights in the Flax layout, from a numpy seed.
+
+    `model` is a network of the port, or a generator config (then the keys
+    and shapes are those of the AttLWB-SPADE generator it describes: 221
+    arrays at full width). Kernels are N(0, 1) / sqrt(fan_in), which is about
+    0.02 for the 3x3x256 convolutions that make up most of the generator and
+    keeps activations at unit scale through its depth; biases are zero; PReLU
+    slopes are 0.25; a frozen batch norm starts at scale 1, mean 0, variance
+    1. Only kernels draw from `np.random.default_rng(seed)`, in sorted key
+    order.
     """
-    from ipercore_tpu_torch.models.networks.generators import LWBGenerator
+    if not isinstance(model, nn.Module):
+        from ipercore_tpu_torch.models.networks.generators import LWBGenerator
 
-    with torch.device("meta"):
-        gen = LWBGenerator(model_cfg)
+        with torch.device("meta"):
+            model = LWBGenerator(model)
+    from ipercore_tpu_torch.models.networks.blocks import FrozenBatchNorm
+    from ipercore_tpu_torch.models.networks.criterions import ChannelPReLU
+
+    fill = {}
+    for name, m in model.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(m, ChannelPReLU):
+            fill[pre + "weight"] = 0.25
+        elif isinstance(m, FrozenBatchNorm):
+            fill[pre + "scale"] = fill[pre + "var"] = 1.0
     rng = np.random.default_rng(seed)
-    entries = sorted(_flax_key_and_shape(k, tuple(v.shape)) for k, v in gen.state_dict().items())
+    entries = []
+    for k, v in model.state_dict().items():
+        key, kind = _flax_entry(model, k)
+        entries.append((key, _flax_shape(tuple(v.shape), kind), kind, fill.get(k, 0.0)))
     flat: dict[str, np.ndarray] = {}
-    for key, shape in entries:
-        if key.endswith("/kernel"):
+    for key, shape, kind, value in sorted(entries):
+        if kind is not None:
             fan_in = int(np.prod(shape[:-1]))
             flat[key] = (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
         else:
-            flat[key] = np.zeros(shape, np.float32)
+            flat[key] = np.full(shape, value, np.float32)
     return flat

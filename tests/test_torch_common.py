@@ -13,9 +13,8 @@ import torch
 import jax.numpy as jnp
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
-PRETRAINED_G = os.path.join(ROOT, "assets", "lwg_pretrained_G.npz")
-# the published generator weights in this repository's history (assets/WEIGHTS.md)
-PRETRAINED_G_BLOB = "1448015:assets/lwg_pretrained_G.npz"
+# the published weight files in this repository's history (assets/WEIGHTS.md)
+WEIGHTS_COMMIT = "1448015"
 _restored: dict[str, str] = {}
 
 NARROW_CFG = {
@@ -30,27 +29,34 @@ FULL_CFG = {
 }
 
 
-def pretrained_generator_npz(tmp_path_factory) -> str:
-    """Path of `lwg_pretrained_G.npz`: the file in `assets/` when it is on
-    disk, else its blob from git history, written once per test session into
-    the session's temporary directory (never into `assets/`, and nothing is
-    staged). Skips only outside a git work tree or when the object is missing."""
-    if os.path.exists(PRETRAINED_G):
-        return PRETRAINED_G
-    if "G" not in _restored:
+def history_weights(name: str, tmp_path_factory) -> str:
+    """Path of `assets/<name>.npz`: the file when it is on disk, else its blob
+    from git history, written once per test session into the session's
+    temporary directory (never into `assets/`, and nothing is staged). Skips
+    only outside a git work tree or when the object is missing."""
+    on_disk = os.path.join(ROOT, "assets", f"{name}.npz")
+    if os.path.exists(on_disk):
+        return on_disk
+    if name not in _restored:
         def git(*args, **kw):
             return subprocess.run(["git", *args], cwd=ROOT, **kw)
 
+        blob = f"{WEIGHTS_COMMIT}:assets/{name}.npz"
         inside = git("rev-parse", "--is-inside-work-tree", capture_output=True, text=True)
         if inside.returncode != 0 or inside.stdout.strip() != "true":
-            pytest.skip("lwg_pretrained_G.npz is not on disk and this is no git work tree")
-        if git("cat-file", "-e", PRETRAINED_G_BLOB, capture_output=True).returncode != 0:
-            pytest.skip(f"lwg_pretrained_G.npz is not on disk and git has no {PRETRAINED_G_BLOB}")
-        path = str(tmp_path_factory.mktemp("weights") / "lwg_pretrained_G.npz")
+            pytest.skip(f"{name}.npz is not on disk and this is no git work tree")
+        if git("cat-file", "-e", blob, capture_output=True).returncode != 0:
+            pytest.skip(f"{name}.npz is not on disk and git has no {blob}")
+        path = str(tmp_path_factory.mktemp("weights") / f"{name}.npz")
         with open(path, "wb") as f:
-            git("cat-file", "blob", PRETRAINED_G_BLOB, stdout=f, check=True)
-        _restored["G"] = path
-    return _restored["G"]
+            git("cat-file", "blob", blob, stdout=f, check=True)
+        _restored[name] = path
+    return _restored[name]
+
+
+def pretrained_generator_npz(tmp_path_factory) -> str:
+    """Path of `lwg_pretrained_G.npz` (see `history_weights`)."""
+    return history_weights("lwg_pretrained_G", tmp_path_factory)
 
 
 def t(a, dtype=torch.float32) -> torch.Tensor:

@@ -48,6 +48,10 @@ def _python_sources():
 def test_every_module_imports_without_jax_or_the_jax_package():
     names = _module_names()
     assert len(names) >= 20
+    for m in ("ipercore_tpu_torch.trainers.lwg_trainer", "ipercore_tpu_torch.services.personalization",
+              "ipercore_tpu_torch.models.networks.discriminators",
+              "ipercore_tpu_torch.models.networks.criterions"):
+        assert m in names
     code = (
         "import importlib, sys\n"
         f"names = {names!r} + ['chip_smoke']\n"
@@ -100,6 +104,11 @@ ENTRY_POINTS = [
     ("ipercore_tpu_torch.services.run_imitator", "imitate"),
     ("ipercore_tpu_torch.services.run_viewer", "novel_view"),
     ("ipercore_tpu_torch.services.run_swapper", "swap"),
+    ("ipercore_tpu_torch.services.personalization", "personalize"),
+    ("ipercore_tpu_torch.models.networks", "build_discriminator"),
+    ("ipercore_tpu_torch.models.networks.criterions", "build_vgg"),
+    ("ipercore_tpu_torch.models.networks.criterions", "build_face_net"),
+    ("ipercore_tpu_torch.models.networks.criterions", "init_face_params"),
 ]
 
 
