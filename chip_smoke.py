@@ -17,7 +17,10 @@ the three services `imitate`, `novel_view` and `swap` on a synthetic
 processed directory written to a temporary directory, `personalize` on that
 directory followed by `imitate` with the personalized weights, and the
 personalization train step at full width (G + D `patch_global`, VGG19 and
-Sphere20a losses, Adam; 512^2, 2 sources, 1 target) with K3 on its batches.
+Sphere20a losses, Adam; 512^2, 2 sources, 1 target) with K3 on its batches,
+and the train service (`services/train.train`: datasets, prefetch, eval,
+panels, checkpoints) in a 1-rank NCCL group for 8 iterations, then resumed
+for 2 more, with K3 on its batches and its eval against the plain versions.
 Reads no weight file: every network is seeded.
 Every phase prints one JSON line; any failed check raises, so the exit code
 is non-zero. Needs one GPU; exits with code 2 when there is none.
@@ -1211,6 +1214,333 @@ def train_phase(device) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the train service (services/train.py) at full width
+# ---------------------------------------------------------------------------
+
+def png_paeth(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG whose every row is stored with the Paeth filter (as
+    other writers store photos), encoded in numpy: the encoder knows every
+    pixel, so the predictor is vectorised."""
+    import struct
+    import zlib
+
+    h, w, c = img.shape
+    raw = img.reshape(h, w * c).astype(np.int16)
+    a = np.zeros_like(raw)
+    a[:, c:] = raw[:, :-c]
+    b = np.zeros_like(raw)
+    b[1:] = raw[:-1]
+    cc = np.zeros_like(raw)
+    cc[1:, c:] = raw[:-1, :-c]
+    p = a + b - cc
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+    rows = ((raw - pred) & 0xFF).astype(np.uint8)
+    data = np.concatenate([np.full((h, 1), 4, np.uint8), rows], axis=1).tobytes()
+
+    def chunk(tag, payload):
+        body = tag + payload
+        return struct.pack(">I", len(payload)) + body + struct.pack(">I", zlib.crc32(body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(data, 6)) + chunk(b"IEND", b""))
+
+
+def decode_times(root: str) -> dict:
+    """`read_png` of one 512² RGB image stored unfiltered (the port's writer)
+    and stored with Paeth rows; both must decode to the image."""
+    from ipercore_tpu_torch.utils import video as vid
+
+    img = np.random.RandomState(9).randint(0, 256, (SIZE, SIZE, 3)).astype(np.uint8)
+    plain, paeth = os.path.join(root, "plain.png"), os.path.join(root, "paeth.png")
+    vid.write_png(plain, img)
+    with open(paeth, "wb") as f:
+        f.write(png_paeth(img))
+    out = {}
+    for name, path in (("unfiltered", plain), ("paeth", paeth)):
+        t0 = time.perf_counter()
+        got = vid.read_png(path)
+        out[name] = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(got, img), f"train service: the {name} PNG does not decode to its image")
+    return out
+
+
+class FakeClock:
+    """The train loop's wall clock, advanced one second an iteration, so that
+    its time-based cadences fire at chosen iterations."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def time(self) -> float:
+        return self.now
+
+
+TRAIN_SERVICE_ITERS = 8
+TRAIN_SERVICE_CADENCE_S = 4.5  # display and mid-run save at index 4 (clock 5 > 4.5)
+
+
+def train_service_phase(device) -> dict:
+    """`services/train.train` in a 1-rank NCCL group at full width, then again
+    to resume. The loop is measured from the outside: the step, the eval, the
+    prefetch queue, the checkpoint writer and loader are wrapped, and the
+    loop's clock is a `FakeClock`."""
+    import torch.distributed as dist
+
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.ops import rasterizer as rz
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+    from ipercore_tpu_torch.ops.dispatch import force_plain
+    from ipercore_tpu_torch.parallel import mesh
+    from ipercore_tpu_torch.services import options
+    from ipercore_tpu_torch.services import train as svc
+    from ipercore_tpu_torch.trainers import lwg_trainer as T
+    from ipercore_tpu_torch.utils import checkpoint as ckpt
+    from ipercore_tpu_torch.utils import video as vid
+
+    n_iters = TRAIN_SERVICE_ITERS
+    rec = {"t": [], "step": [], "wait": [], "eval": [], "save": [], "load": [], "batches": [], "saved": {}}
+    clock = FakeClock()
+    window = {"from": 5, "syncs": 0, "k3": 0}
+    caught: list = []
+
+    def snapshot(state):
+        cpu = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}
+        return {"G": cpu(state.params_G), "D": cpu(state.params_D),
+                "opt_G": state.opt_G._replace(mu=cpu(state.opt_G.mu), nu=cpu(state.opt_G.nu)),
+                "opt_D": state.opt_D._replace(mu=cpu(state.opt_D.mu), nu=cpu(state.opt_D.nu))}
+
+    real_make, real_eval = T.make_sharded_train_step, T.eval_step
+    real_prefetch, real_save, real_load, real_time = svc.prefetch, svc.save_train_ckpt, svc.load_train_ckpt, svc.time
+
+    def make(comp, gen, dis, vgg, face, cfg, ns=2):
+        rec["rig"] = (comp, gen, dis, vgg, face, cfg, ns)
+        step = real_make(comp, gen, dis, vgg, face, cfg, ns=ns)
+
+        def timed_step(state, batch):
+            i = len(rec["t"])
+            rec["t"].append(time.perf_counter())
+            if "state0" not in rec:
+                rec["state0"] = {"G": {k: v.clone() for k, v in state.params_G.items()}}
+            if i == window["from"]:
+                window["k3_before"] = read_counts()["raster_fim"]
+                torch.cuda.set_sync_debug_mode("warn")
+                window["mark"] = len(caught)
+            elif i == window["from"] + 1:
+                torch.cuda.set_sync_debug_mode("default")
+                window["syncs"] = sum("synchroniz" in str(w.message).lower() for w in caught[window["mark"]:])
+                window["k3"] = read_counts()["raster_fim"] - window["k3_before"]
+            rec["batches"].append(batch)
+            clock.now += 1.0
+            if i == window["from"]:
+                return step(state, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            rec["step"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed_step
+
+    def counting() -> bool:
+        return window["from"] <= len(rec["t"]) - 1 < window["from"] + 1
+
+    def timed_eval(*a, **k):
+        if counting():
+            return real_eval(*a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_eval(*a, **k)
+        torch.cuda.synchronize()
+        rec["eval"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_prefetch(it, depth=2):
+        src = real_prefetch(it, depth)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(src)
+            except StopIteration:
+                return
+            rec["wait"].append((time.perf_counter() - t0) * 1e3)
+            yield item
+
+    def timed_save(ckpt_dir, step, state, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(ckpt_dir, step, state, *a, **k)
+        rec["save"].append(time.perf_counter() - t0)
+        rec["saved"][step] = snapshot(state)
+
+    def timed_load(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = real_load(*a, **k)
+        torch.cuda.synchronize()
+        rec["load"].append((time.perf_counter() - t0, a[1], state))
+        return state
+
+    env_keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+    env_before = {k: os.environ.get(k) for k in env_keys}
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        out["decode_ms"] = decode_times(root)
+        data = os.path.join(root, "data")
+        for i, name in enumerate(("v0", "v1")):
+            write_processed(data, name, 6, 21 + i, masks=True, background=True)
+        with open(os.path.join(data, "train.txt"), "w") as f:
+            f.write("v0\nv1\n")
+        opt = options.setup(None, [])
+        opt.update(image_size=SIZE, num_source=NS, time_step=NT, batch_size=1, Generator=CFG,
+                   output_dir=os.path.join(root, "out"), model_id="train", dataset_dirs=[data])
+        opt.Discriminator.update(DIS_CFG)
+        opt.Train.update(print_freq_s=0.0, display_freq_s=TRAIN_SERVICE_CADENCE_S,
+                         save_latest_freq_s=TRAIN_SERVICE_CADENCE_S)
+        ckpt_dir = os.path.join(opt.output_dir, "models", "train")
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        try:
+            dev = mesh.init_data_parallel(device, init_method="file://" + os.path.join(root, "store"))
+            check(dist.is_initialized() and dist.get_backend() == "nccl" and mesh.world_size() == 1,
+                  "train service: no 1-rank NCCL group")
+            T.make_sharded_train_step, T.eval_step = make, timed_eval
+            svc.prefetch, svc.save_train_ckpt, svc.load_train_ckpt, svc.time = (
+                timed_prefetch, timed_save, timed_load, clock)
+            reduces0 = mesh.all_reduce_mean.calls
+            with warnings.catch_warnings(record=True) as caught_now:
+                warnings.simplefilter("always")
+                caught = caught_now
+                zero_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                metrics = svc.train(opt, max_iters=n_iters, device=dev)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                launches = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            reduces = mesh.all_reduce_mean.calls - reduces0
+            first = {k: rec[k][:] for k in ("t", "step", "wait", "eval", "save")}
+            comp, gen, dis, vgg, face, cfg, ns = rec["rig"]
+            batches = rec["batches"][:]
+
+            # resume: a second call restores the final save and runs 2 more
+            rec.update(t=[], wait=[], batches=[], load=[])
+            clock.now = 0.0
+            window["from"] = -10
+            zero_counts()
+            t0 = time.perf_counter()
+            svc.train(opt, max_iters=n_iters + 2, device=dev)
+            torch.cuda.synchronize()
+            resume_run_s = time.perf_counter() - t0
+            resume_launches = read_counts()
+            resume_reduces = mesh.all_reduce_mean.calls - reduces0 - reduces
+        finally:
+            T.make_sharded_train_step, T.eval_step = real_make, real_eval
+            svc.prefetch, svc.save_train_ckpt, svc.load_train_ckpt, svc.time = (
+                real_prefetch, real_save, real_load, real_time)
+            torch.cuda.set_sync_debug_mode("default")
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k, v in env_before.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+        # what the first run did and wrote
+        losses = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in losses.values()), f"train service: losses not finite {losses}")
+        final = rec["saved"][n_iters]
+        moved = max(float((final["G"][k] - rec["state0"]["G"][k].cpu()).abs().max()) for k in final["G"])
+        check(moved > 0, "train service: the parameters did not move")
+        for step in (TRAIN_SERVICE_ITERS // 2, n_iters):
+            missing = [p for p in ckpt.train_ckpt_paths(ckpt_dir, step).values() if not os.path.exists(p)]
+            check(not missing, f"train service: checkpoint files missing {missing}")
+        check(sorted(rec["saved"]) == [TRAIN_SERVICE_ITERS // 2, n_iters, n_iters + 2],
+              f"train service: saved at {sorted(rec['saved'])}")
+        with open(os.path.join(ckpt_dir, "train_log.jsonl")) as f:
+            rows = [json.loads(l) for l in f]
+        check(len(rows) == n_iters + 2 and all(k in rows[0] for k in ("g_total", "d_total", "val_g_total",
+                                                                        "val_g_tsf")),
+              f"train service: log rows {len(rows)}, keys {sorted(rows[0]) if rows else []}")
+        panels = sorted(os.listdir(os.path.join(ckpt_dir, "panels")))
+        check(len(panels) == 1, f"train service: panels {panels}")
+        panel = vid.read_png(os.path.join(ckpt_dir, "panels", panels[0]))
+        check(panel.shape == (4 * SIZE, SIZE, 3), f"train service: panel {panel.shape}")
+        per_iter = 2 + 2  # the train step's sources and target, then the eval's
+        want_k3 = 1 + per_iter * n_iters + 2  # + the composer, + the panel's eval
+        check(launches["raster_fim"] == want_k3 == launches["raster_binning"]
+              and not any(launches[k] for k in ("raster_flows_csr", "grid_sample_nhwc", "raster_flows_table")),
+              f"train service: launches {launches}, want {want_k3} of raster_fim")
+        check(window["k3"] == per_iter, f"train service: {window['k3']} K3 launches in one iteration")
+        check(reduces == 2 * n_iters and resume_reduces == 2 * 2,
+              f"train service: {reduces} / {resume_reduces} all-reduces, want 2 a step")
+
+        # the resumed run: starts at n_iters with exactly the state saved there
+        (load_s, step, loaded), = rec["load"]
+        check(step == n_iters and int(loaded.step) == n_iters and len(rec["t"]) == 2,
+              f"train service: resumed at {step}, ran {len(rec['t'])} iterations")
+        got = snapshot(loaded)
+        for net, module in (("G", gen), ("D", dis)):
+            check(all(torch.equal(got[net][k], final[net][k]) for k in final[net]),
+                  f"train service: resumed {net} parameters differ from the saved ones")
+            check(all(np.array_equal(a, b) for a, b in zip(
+                ckpt.adam_state_to_leaves(module, got[f"opt_{net}"], False),
+                ckpt.adam_state_to_leaves(module, final[f"opt_{net}"], False))),
+                f"train service: resumed {net} Adam state differs from the saved one")
+
+        # K3 on the service's batches, and the eval with kernels against plain
+        model = comp.model
+        tile_max = 0
+        for b in batches:
+            for what, theta in (("sources", b["smpls"][0, :ns]), ("targets", b["smpls"][0, ns:])):
+                d = smpl_mod.get_details(model, theta)
+                fv = rz.verts_to_faces(rz.project_verts(d["verts"], d["cam"]), model.faces).contiguous()
+                if what == "targets":
+                    tile_max = max(tile_max, rc.bin_faces_table(fv, SIZE, TABLE_K, with_stats=True)
+                                   .stats["max_tile_load"])
+                if b is batches[0]:
+                    o, ref = rc.raster_fim(fv, SIZE), rc.raster_fim_plain(fv, SIZE)
+                    raster_agreement(o.fim, ref.fim, o.wim, ref.wim, f"raster_fim/train service {what}",
+                                     bit_equal=True)
+        last = T.LWGTrainState(params_G={k: v.to(dev) for k, v in final["G"].items()},
+                               params_D={k: v.to(dev) for k, v in final["D"].items()},
+                               opt_G=None, opt_D=None, step=torch.zeros((), dtype=torch.int32, device=dev))
+        vb = batches[-1]
+        mk = T.eval_step(last, vb, comp, gen, dis, vgg, face, cfg, ns=ns)
+        with force_plain():
+            mp = T.eval_step(last, vb, comp, gen, dis, vgg, face, cfg, ns=ns)
+        eval_rel = {k: abs(float(mk[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-6) for k in mk}
+        check(max(eval_rel.values()) <= 1e-4, f"train service: eval with kernels vs plain {eval_rel}")
+
+    iters = np.diff(np.asarray(first["t"])) * 1e3
+    steady = iters[2:] if len(iters) > 2 else iters
+    iter_ms = float(np.median(steady))
+    out.update({
+        "iterations": n_iters, "resumed_iterations": 2, "world_size": 1, "backend": "nccl",
+        "model": "AttLWB-SPADE", "discriminator": "patch_global", "losses": "VGG19 + Sphere20a",
+        "size": SIZE, "ns": NS, "nt": NT, "bs": 1, "dtype": "float32", "tf32": False,
+        "iter_ms": iter_ms, "iters_per_s": 1e3 / iter_ms, "iter_ms_all": iters.tolist(),
+        # the data-parallel step alone (synchronised around it; not in the
+        # sync-count iteration), and what the iteration spends besides it and the eval
+        "step_ms": float(np.median(first["step"][2:])), "step_ms_all": first["step"],
+        "iter_other_ms": iter_ms - float(np.median(first["step"][2:])) - float(np.median(first["eval"])),
+        "data_wait_ms": float(np.mean(first["wait"][2:])), "data_wait_ms_all": first["wait"],
+        "eval_ms": float(np.median(first["eval"])), "eval_ms_all": first["eval"],
+        "checkpoint_write_s": first["save"], "resume_s": load_s, "first_call_s": first_s,
+        "resume_call_s": resume_run_s, "peak_memory_gib": peak,
+        "host_syncs_per_iter": window["syncs"], "k3_launches_per_iter": window["k3"],
+        "k3_launches_first_call": launches["raster_fim"], "k3_launches_resume_call": resume_launches["raster_fim"],
+        "nccl_all_reduces": reduces, "nccl_all_reduces_per_step": reduces / n_iters,
+        "k3_max_tile_faces_8x128_targets": tile_max, "k3_jax_tile_cap": TABLE_K,
+        "k3_bit_equal_on_service_batch": True, "eval_kernel_vs_plain_rel_diff": eval_rel,
+        "resume_bit_equal": True, "losses_last_step": losses, "param_max_move": moved,
+    })
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["kernels"], default=None,
@@ -1258,10 +1588,13 @@ def main() -> int:
     emit("services", **services)
     train = train_phase(device)
     emit("personalize", service=service_runs, train_step=train)
+    service_train = train_service_phase(device)
+    emit("train_service", **service_train)
 
     # launches: K1-K3 on the main path's run, K4 on the table route's
     launches = dict(result["launches"], raster_flows_table=table["launches"]["raster_flows_table"])
     kernels["raster_fim"]["launches_per_train_step"] = train["k3_launches_per_step"]
+    kernels["raster_fim"]["launches_per_train_service_iteration"] = service_train["k3_launches_per_iter"]
     line = {"kernels": [
         {"name": name, "replaces": REPLACES[name], "launches": launches[name],
          "ms": v["wrapper_ms"], **v}  # `ms`: the whole call, as a user of the wrapper pays it

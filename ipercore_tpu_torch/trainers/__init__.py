@@ -8,6 +8,8 @@ from ipercore_tpu_torch.trainers.lwg_trainer import (  # noqa: F401
     LWGTrainState,
     TrainConfig,
     create_train_state,
+    eval_step,
+    make_sharded_train_step,
     train_step,
 )
 

@@ -24,8 +24,16 @@ place.
 
 `compute_dtype="bfloat16"` runs G and D under autocast over the f32 master
 weights; `remat` recomputes the G forward in the backward pass
-(`torch.utils.checkpoint`). `eval_step` and the sharded step belong to the
-train-service slice.
+(`torch.utils.checkpoint`).
+
+`eval_step` is the validation forward (the G losses without an update, and
+the panel rows). `make_sharded_train_step` is the data-parallel step: each
+rank runs `train_step` on its rows and G's and D's gradients (with the
+metrics) are averaged across the ranks by one all-reduce per network before
+the optimizer, where the JAX package's pjit inserts its collectives. Every
+loss is a mean over the batch and no network holds batch statistics, so the
+mean of the ranks' gradients over equal shards is the gradient over the global
+batch.
 """
 from __future__ import annotations
 
@@ -253,7 +261,14 @@ def train_step(state: LWGTrainState, batch: dict, comp: fc.FlowComposer, generat
         return _train_step(state, batch, comp, generator, discriminator, vgg, face, cfg, ns)
 
 
-def _train_step(state, batch, comp, generator, discriminator, vgg, face, cfg, ns):
+Reduce = Callable[[list[torch.Tensor]], list[torch.Tensor]]
+
+
+def _train_step(state, batch, comp, generator, discriminator, vgg, face, cfg, ns,
+                reduce: Optional[Reduce] = None):
+    """`train_step`'s body. `reduce`, when given, maps each network's
+    gradients followed by its metrics (G: the g_* losses; D: d_total) before
+    the optimizer applies them (the data-parallel mean)."""
     images, smpls, masks = batch["images"], batch["smpls"], batch["masks"]
     bs, nt, S = images.shape[0], images.shape[1] - ns, comp.image_size
     device = images.device
@@ -332,10 +347,13 @@ def _train_step(state, batch, comp, generator, discriminator, vgg, face, cfg, ns
     loss_smooth = C.tv_loss(fake_masks) * cfg.lambda_mask_smooth
     total = loss_rec + loss_tsf + loss_face + loss_adv + loss_mask + loss_smooth
     g_grads = torch.autograd.grad(total, list(params_G.values()))
-    new_params_G, new_opt_G = tx_g.apply(dict(zip(params_G, g_grads)), state.opt_G, state.params_G)
     metrics = {"g_rec": loss_rec, "g_tsf": loss_tsf, "g_face": loss_face, "g_adv": loss_adv,
                "g_mask": loss_mask, "g_smooth": loss_smooth, "g_total": total}
     metrics = {k: v.detach() for k, v in metrics.items()}
+    if reduce is not None:
+        reduced = reduce(list(g_grads) + list(metrics.values()))
+        g_grads, metrics = reduced[:len(g_grads)], dict(zip(metrics, reduced[len(g_grads):]))
+    new_params_G, new_opt_G = tx_g.apply(dict(zip(params_G, g_grads)), state.opt_G, state.params_G)
     fake_tsf = flat_tsf.detach()
     del outs, fake_bg, fake_src_color, fake_src_mask, fake_tsf_color, fake_tsf_mask, total
 
@@ -346,10 +364,101 @@ def _train_step(state, batch, comp, generator, discriminator, vgg, face, cfg, ns
         d_real = apply_D(params_D, torch.cat([real_tsf, tsf_cond], dim=-1))
         d_total = C.lsgan_loss(d_real, 1.0) + C.lsgan_loss(d_fake, -1.0)
         d_grads = torch.autograd.grad(d_total, list(params_D.values()))
-        new_params_D, new_opt_D = tx_d.apply(dict(zip(params_D, d_grads)), state.opt_D, state.params_D)
         d_total = d_total.detach()
+        if reduce is not None:
+            *d_grads, d_total = reduce(list(d_grads) + [d_total])
+        new_params_D, new_opt_D = tx_d.apply(dict(zip(params_D, d_grads)), state.opt_D, state.params_D)
     else:
         d_total, new_params_D, new_opt_D = zero, state.params_D, state.opt_D
     metrics["d_total"] = d_total
     return LWGTrainState(params_G=new_params_G, params_D=new_params_D, opt_G=new_opt_G,
                          opt_D=new_opt_D, step=state.step + 1), metrics
+
+
+def eval_step(state: LWGTrainState, batch: dict, comp: fc.FlowComposer, generator: torch.nn.Module,
+              discriminator: torch.nn.Module, vgg: torch.nn.Module, face: Optional[torch.nn.Module],
+              cfg: TrainConfig, ns: int = 2, return_images: bool = False):
+    """Validation forward: `train_step`'s G losses (without the smoothness
+    term) and no update, on held-out batches.
+
+    Runs under `no_grad` with TF32 off, in f32 as the JAX package's
+    `eval_step` (which casts nothing to `compute_dtype`). The composition
+    takes neither offsets nor links, as there.
+
+    Returns the metrics val_g_rec, val_g_tsf, val_g_face, val_g_adv,
+    val_g_mask, val_g_total (0-dim tensors); with `return_images` also the
+    panel rows {src, ref, fake_tsf, fake_bg}, each (bs, S, S, 3): the first
+    source, the first target, the first synthesized target, the background.
+    """
+    with reference_precision(), torch.no_grad():
+        images, smpls, masks = batch["images"], batch["smpls"], batch["masks"]
+        bs, nt, S = images.shape[0], images.shape[1] - ns, comp.image_size
+        src_img, ref_img = images[:, :ns], images[:, ns:]
+        comp_out = fc.forward(comp, src_img, ref_img, smpls[:, :ns], smpls[:, ns:],
+                              src_mask=masks[:, :ns], ref_mask=masks[:, ns:], temporal=cfg.temporal)
+        ref_j2d = comp_out["ref_info"]["j2d"]
+        head_bbox = cal_head_bbox_by_kps(ref_j2d)
+        body_bbox = cal_body_bbox_by_kps(ref_j2d)
+        real_bg = batch["bg"]
+        tsf_cond = comp_out["input_G_tsf"][..., 3:6].reshape(bs * nt, S, S, 3)
+        real_tsf = ref_img.reshape(bs * nt, S, S, 3)
+
+        outs = functional_call(generator, state.params_G,
+                               (comp_out["input_G_bg"], comp_out["input_G_src"], comp_out["input_G_tsf"],
+                                comp_out["Tst"], comp_out["Ttt"]), {"only_tsf": False})
+        fake_bg, fake_src_color, fake_src_mask, fake_tsf_color, fake_tsf_mask = outs
+        fake_bg_b = fake_bg[:, 0:1]
+        fake_tsf_imgs = _composite(fake_tsf_color, fake_tsf_mask, fake_bg_b)
+        flat_tsf = fake_tsf_imgs.reshape(bs * nt, S, S, 3)
+
+        bg_rec = C.l1_loss(fake_bg_b[:, 0], real_bg)
+        fake_src_imgs = _composite(fake_src_color, fake_src_mask, fake_bg_b)
+        loss_rec = (C.l1_loss(fake_src_imgs, src_img) + bg_rec) / 2.0 * cfg.lambda_rec
+        loss_tsf = C.perceptual_loss(vgg, flat_tsf, real_tsf) * cfg.lambda_tsf
+        zero = torch.zeros((), device=images.device)
+        if cfg.use_face:
+            loss_face = C.face_loss(face, flat_tsf, real_tsf, head_bbox, head_bbox,
+                                    hw=cfg.face_hw) * cfg.lambda_face
+        else:
+            loss_face = zero
+        if cfg.use_gan:
+            d_outs = functional_call(discriminator, state.params_D,
+                                     (torch.cat([flat_tsf, tsf_cond], dim=-1), None, body_bbox, head_bbox))
+            loss_adv = C.lsgan_loss(d_outs, 0.0) * cfg.lambda_d_prob
+        else:
+            loss_adv = zero
+        fake_masks = torch.cat([fake_src_mask, fake_tsf_mask], dim=1)
+        loss_mask = C.mask_bce_loss(fake_masks.reshape(-1, S, S, 1), masks.reshape(-1, S, S, 1)) * cfg.lambda_mask
+        total = loss_rec + loss_tsf + loss_face + loss_adv + loss_mask
+        metrics = {"val_g_rec": loss_rec, "val_g_tsf": loss_tsf, "val_g_face": loss_face,
+                   "val_g_adv": loss_adv, "val_g_mask": loss_mask, "val_g_total": total}
+        if return_images:
+            return metrics, {"src": src_img[:, 0], "ref": ref_img[:, 0],
+                             "fake_tsf": fake_tsf_imgs[:, 0], "fake_bg": fake_bg_b[:, 0]}
+        return metrics
+
+
+def make_sharded_train_step(comp: fc.FlowComposer, generator: torch.nn.Module,
+                            discriminator: torch.nn.Module, vgg: torch.nn.Module,
+                            face: Optional[torch.nn.Module], cfg: TrainConfig, ns: int = 2):
+    """The data-parallel train step: `step(state, batch) -> (state, metrics)`
+    over this rank's rows of the global batch.
+
+    In a process group, G's gradients with the g_* metrics, and D's with
+    d_total, are each averaged across the ranks by one all-reduce
+    (`parallel.mesh.all_reduce_mean`) before the optimizer, so the
+    global-norm clip and the finite check see the averaged gradients and
+    every rank applies the same update. Without a group it is `train_step`.
+    """
+    from ipercore_tpu_torch.parallel import mesh
+
+    if not torch.distributed.is_initialized():
+        return lambda state, batch: train_step(state, batch, comp, generator, discriminator, vgg, face,
+                                               cfg, ns=ns)
+
+    def step(state, batch):
+        with reference_precision():
+            return _train_step(state, batch, comp, generator, discriminator, vgg, face, cfg, ns,
+                               reduce=mesh.all_reduce_mean)
+
+    return step

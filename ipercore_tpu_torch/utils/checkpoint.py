@@ -17,10 +17,17 @@ the Flax module names, so the carrier is mechanical:
 the JAX package reads, and the reverse. `seeded_flat_params` makes a full set
 of random weights in the Flax layout from a numpy seed, so that a run that has
 no weight file goes through the same carrier as real weights.
+
+The training checkpoints (`save_train_ckpt` / `load_train_ckpt`,
+`find_latest_iter`) are the JAX package's files: `net_iter_<it>_id_{G,D}.npz`
+through the carrier, and `opt_iter_<it>_id_{G,D}.npz` holding an `AdamState`
+as the leaves of optax's state (`adam_state_to_leaves`), so a run started by
+one package resumes in the other.
 """
 from __future__ import annotations
 
 import os
+import re
 from typing import Mapping
 
 import numpy as np
@@ -213,3 +220,130 @@ def seeded_flat_params(model, seed: int = 0) -> dict[str, np.ndarray]:
         else:
             flat[key] = np.full(shape, value, np.float32)
     return flat
+
+
+# --- training checkpoints: parameters and both optimizer states ----------------
+
+def find_latest_iter(ckpt_dir: str, net_id: str = "G") -> tuple[int, str | None]:
+    """The latest `net_iter_<it>_id_<net_id>.npz` in `ckpt_dir`: (iteration,
+    path), or (-1, None) when there is none."""
+    best, best_path = -1, None
+    if not os.path.isdir(ckpt_dir):
+        return best, best_path
+    pat = re.compile(rf"net_iter_(\d+)_id_{net_id}\.npz$")
+    for f in os.listdir(ckpt_dir):
+        m = pat.match(f)
+        if m and int(m.group(1)) > best:
+            best, best_path = int(m.group(1)), os.path.join(ckpt_dir, f)
+    return best, best_path
+
+
+def _flax_order(module: nn.Module, params: Mapping[str, torch.Tensor]) -> list[tuple[str, str]]:
+    """(state-dict key, flax key) of every parameter in the order of the Flax
+    tree's leaves: sorted by path, level by level."""
+    keys = [(k, _flax_entry(module, k)[0]) for k in params]
+    return sorted(keys, key=lambda kv: kv[1].split("/"))
+
+
+def adam_state_to_leaves(module: nn.Module, state, scheduled: bool) -> list[np.ndarray]:
+    """An `AdamState` as the leaves of the JAX package's optax state of
+    apply_if_finite(chain(clip_by_global_norm, adam)): notfinite_count (i32),
+    last_finite (bool), total_notfinite (i32), the Adam count (i32), the first
+    moments, then the second, each in the Flax tree's order and layout, and
+    with a learning-rate schedule (`scheduled`) the schedule's count, which
+    optax advances with the Adam count."""
+    mu = torch_params_to_flax(module, state.mu)
+    nu = torch_params_to_flax(module, state.nu)
+    order = [fk for _, fk in _flax_order(module, state.mu)]
+    scalar = lambda t, dt: np.asarray(t.detach().cpu().numpy(), dt)
+    count = scalar(state.count, np.int32)
+    leaves = [scalar(state.notfinite_count, np.int32), scalar(state.last_finite, np.bool_),
+              scalar(state.total_notfinite, np.int32), count]
+    leaves += [mu[k] for k in order] + [nu[k] for k in order]
+    if scheduled:
+        leaves.append(count.copy())
+    return leaves
+
+
+def adam_state_from_leaves(module: nn.Module, leaves: list[np.ndarray], like, scheduled: bool,
+                           what: str = "optimizer state"):
+    """The inverse of `adam_state_to_leaves`: an `AdamState` like `like`
+    (device, dtypes, keys). A leaf count that does not fit raises, naming
+    `what`."""
+    order = _flax_order(module, like.mu)
+    want = 4 + 2 * len(order) + int(scheduled)
+    if len(leaves) != want:
+        raise ValueError(f"{what}: {len(leaves)} saved leaves vs {want} expected "
+                         "— optimizer/config structure changed since the checkpoint")
+    n = len(order)
+
+    def moments(arrays):
+        flat = {fk: a for (_, fk), a in zip(order, arrays)}
+        tensors = flax_params_to_torch(flat, like={k: like.mu[k] for k, _ in order})
+        return {k: tensors[k].to(like.mu[k].device) for k in like.mu}
+
+    def scalar(a, ref):
+        return torch.as_tensor(np.asarray(a), dtype=ref.dtype, device=ref.device)
+
+    return type(like)(
+        count=scalar(leaves[3], like.count), mu=moments(leaves[4:4 + n]), nu=moments(leaves[4 + n:4 + 2 * n]),
+        notfinite_count=scalar(leaves[0], like.notfinite_count), last_finite=scalar(leaves[1], like.last_finite),
+        total_notfinite=scalar(leaves[2], like.total_notfinite))
+
+
+def save_leaves(path: str, leaves: list[np.ndarray]) -> None:
+    """Write arrays as the npz entries `leaf_00000`, `leaf_00001`, ... (the
+    JAX package's `save_pytree` file), through a temporary file."""
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(tmp, **{f"leaf_{i:05d}": a for i, a in enumerate(leaves)})
+    os.replace(tmp, path)
+
+
+def load_leaves(path: str) -> list[np.ndarray]:
+    """The arrays of a `save_leaves` (or `save_pytree`) file, in order."""
+    with np.load(path) as z:
+        return [z[k] for k in sorted(z.files)]
+
+
+def train_ckpt_paths(ckpt_dir: str, step: int) -> dict[str, str]:
+    """The four files of a training checkpoint at `step`: {"net_G", "net_D",
+    "opt_G", "opt_D"} -> `<ckpt_dir>/<kind>_iter_<step>_id_<net>.npz`."""
+    return {f"{kind}_{net}": os.path.join(ckpt_dir, f"{kind}_iter_{step}_id_{net}.npz")
+            for kind in ("net", "opt") for net in ("G", "D")}
+
+
+def save_train_ckpt(ckpt_dir: str, step: int, state, generator: nn.Module, discriminator: nn.Module,
+                    scheduled: bool = False) -> None:
+    """`net_iter_<step>_id_{G,D}.npz` (parameters in the Flax layout) and
+    `opt_iter_<step>_id_{G,D}.npz` (both optimizer states as optax's leaves)
+    of a `LWGTrainState`, the files the JAX package's `save_train_ckpt` writes.
+    `scheduled`: the learning rate follows a schedule (`niters_decay > 0`)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    paths = train_ckpt_paths(ckpt_dir, step)
+    for net, module, params, opt in (("G", generator, state.params_G, state.opt_G),
+                                     ("D", discriminator, state.params_D, state.opt_D)):
+        save_params(paths[f"net_{net}"], torch_params_to_flax(module, params))
+        save_leaves(paths[f"opt_{net}"], adam_state_to_leaves(module, opt, scheduled))
+
+
+def load_train_ckpt(ckpt_dir: str, step: int, like_state, generator: nn.Module, discriminator: nn.Module,
+                    scheduled: bool = False):
+    """Restore what `save_train_ckpt` (of either package) wrote at `step` into
+    a fresh `LWGTrainState` like `like_state`, with its step count set to
+    `step`. G's parameters must exist; a missing D file or optimizer file
+    keeps the fresh state."""
+    def params(path, module, like):
+        loaded = flax_params_to_torch(load_flat_npz(path), like=module.state_dict())
+        return {k: loaded[k].to(like[k].device) for k in like}
+
+    paths = train_ckpt_paths(ckpt_dir, step)
+    params_G = params(paths["net_G"], generator, like_state.params_G)
+    params_D = (params(paths["net_D"], discriminator, like_state.params_D) if os.path.exists(paths["net_D"])
+                else like_state.params_D)
+    opts = {}
+    for net, module, like in (("G", generator, like_state.opt_G), ("D", discriminator, like_state.opt_D)):
+        path = paths[f"opt_{net}"]
+        opts[net] = (adam_state_from_leaves(module, load_leaves(path), like, scheduled, what=path)
+                     if os.path.exists(path) else like)
+    return like_state._replace(params_G=params_G, params_D=params_D, opt_G=opts["G"], opt_D=opts["D"],
+                               step=torch.as_tensor(step, dtype=torch.int32, device=like_state.step.device))

@@ -138,3 +138,38 @@ def unflatten_to_jax(flat: dict) -> dict:
         return jnp.asarray(node)
 
     return conv(_unflatten(flat))
+
+
+def write_train_video(root: str, name: str, n_frames: int, seed: int, size: int = 64,
+                      mask_size: int | None = None, background: bool = False,
+                      front_ids: tuple = ()) -> None:
+    """A processed training video under `<root>/primitives/<name>/processed`:
+    `n_frames` random frames at `size`², SMPLs, optionally masks (at
+    `mask_size`², background = 1 outside a disc), a pseudo-background and
+    front ids, from a seed (the port's writers; both packages read them)."""
+    from ipercore_tpu_torch.services.meta_info import MetaProcess
+    from ipercore_tpu_torch.services.process_info import ProcessInfo
+    from ipercore_tpu_torch.utils import video as vid
+
+    rng = np.random.RandomState(seed)
+    info = ProcessInfo(MetaProcess(name, root).make_dirs().processed_dir, name=name)
+    os.makedirs(os.path.join(info.processed_dir, "images"), exist_ok=True)
+    names = [f"frame_{i:08d}.png" for i in range(n_frames)]
+    for nm in names:
+        vid.save_image(os.path.join(info.processed_dir, "images", nm),
+                       rng.uniform(-1, 1, (size, size, 3)).astype(np.float32))
+    info.meta["valid_img_names"] = names
+    smpls = thetas(n_frames, seed=seed, pose_scale=0.15)
+    smpls[:, 1:3] = rng.randn(n_frames, 2).astype(np.float32) * 0.03
+    info.set_array("smpls", smpls)
+    if mask_size:
+        yy, xx = np.mgrid[:mask_size, :mask_size]
+        r = mask_size / 3 * (1 + 0.2 * rng.rand(n_frames))[:, None, None]
+        c = mask_size / 2
+        info.set_array("masks", (((yy - c) ** 2 + (xx - c) ** 2)[None] > r ** 2).astype(np.float32))
+    if background:
+        vid.save_image(os.path.join(info.processed_dir, "background.png"),
+                       rng.uniform(-1, 1, (size, size, 3)).astype(np.float32))
+    if front_ids:
+        info.set_array("ft_ids", np.asarray(front_ids, np.int64))
+    info.serialize()

@@ -50,7 +50,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert len(names) >= 20
     for m in ("ipercore_tpu_torch.trainers.lwg_trainer", "ipercore_tpu_torch.services.personalization",
               "ipercore_tpu_torch.models.networks.discriminators",
-              "ipercore_tpu_torch.models.networks.criterions"):
+              "ipercore_tpu_torch.models.networks.criterions",
+              "ipercore_tpu_torch.data.datasets", "ipercore_tpu_torch.data.prefetch",
+              "ipercore_tpu_torch.parallel.mesh", "ipercore_tpu_torch.services.train",
+              "ipercore_tpu_torch.utils.logging", "ipercore_tpu_torch.utils.live_dashboard"):
         assert m in names
     code = (
         "import importlib, sys\n"
@@ -109,6 +112,8 @@ ENTRY_POINTS = [
     ("ipercore_tpu_torch.models.networks.criterions", "build_vgg"),
     ("ipercore_tpu_torch.models.networks.criterions", "build_face_net"),
     ("ipercore_tpu_torch.models.networks.criterions", "init_face_params"),
+    ("ipercore_tpu_torch.services.train", "train"),
+    ("ipercore_tpu_torch.parallel.mesh", "init_data_parallel"),
 ]
 
 

@@ -1,8 +1,9 @@
 """The training half of the port against the JAX package: `LWBGenerator.forward`
 (the training-style call), `flow_composition.forward`, the optimizer (held
-against optax), the keypoint boxes, the trainer registry and one
+against optax), the keypoint boxes, the trainer registry, one
 `train_step` (losses, G and D gradients, updated parameters and both Adam
-states), on the rig of `tests/test_trainers/test_lwg_trainer.py`: S = 64,
+states) and one `eval_step` (metrics within 1e-4 relative, panel rows within
+1e-4), on the rig of `tests/test_trainers/test_lwg_trainer.py`: S = 64,
 ns = nt = 2, `patch_global_body_head` with ndf 8, a narrow VGG, Sphere20a,
 the synthetic body. The JAX step is jitted once per configuration.
 
@@ -253,6 +254,50 @@ def test_bfloat16_step_runs_close_to_f32(rig, steps):
     assert all(v.dtype == torch.float32 for v in bs.params_G.values())
     moved = max(float((bs.params_G[k] - rig["params_G"][k]).abs().max()) for k in bs.params_G)
     assert moved > 0
+
+
+@pytest.fixture(scope="module")
+def evals(rig):
+    """`eval_step` with its panel rows in both packages on one geometry (the
+    JAX one jitted once)."""
+    batch = _batch(1)
+    jeval = jax.jit(functools.partial(
+        JT.eval_step, comp=rig["jcomp"], generator=rig["jgen"], discriminator=rig["jdis"],
+        vgg=rig["jvgg"], vgg_params=rig["vgg_params"], face=rig["jface"],
+        face_params=rig["face_params"], cfg=JT.TrainConfig(), ns=NS, return_images=True))
+    state = TT.create_train_state(rig["tgen"], rig["tdis"], TT.TrainConfig(), params_G=dict(rig["params_G"]),
+                                  params_D=dict(rig["params_D"]))
+    tbatch = {k: t(v) for k, v in batch.items()}
+    with _same_geometry(rig, batch):
+        want = jeval(rig["jstate"], {k: jnp.asarray(v) for k, v in batch.items()})
+        got = TT.eval_step(state, tbatch, rig["tcomp"], rig["tgen"], rig["tdis"], rig["tvgg"], rig["tface"],
+                           TT.TrainConfig(), ns=NS, return_images=True)
+        plain = TT.eval_step(state, tbatch, rig["tcomp"], rig["tgen"], rig["tdis"], rig["tvgg"], rig["tface"],
+                             TT.TrainConfig(), ns=NS)
+    return want, got, plain, state, tbatch
+
+
+def test_eval_step_matches_jax(evals):
+    """Metrics within 1e-4 relative; panel rows within 1e-4."""
+    (jm, jimg), (tm, timg), plain, _, _ = evals
+    assert set(tm) == set(jm) == set(plain) == {"val_g_rec", "val_g_tsf", "val_g_face", "val_g_adv",
+                                                 "val_g_mask", "val_g_total"}
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, atol=1e-7, err_msg=k)
+        assert float(plain[k]) == float(tm[k]), k
+    assert set(timg) == set(jimg) == {"src", "ref", "fake_tsf", "fake_bg"}
+    for k in jimg:
+        assert timg[k].shape == (BS, S, S, 3)
+        np.testing.assert_allclose(n(timg[k]), np.asarray(jimg[k]), rtol=0, atol=1e-4, err_msg=k)
+
+
+def test_eval_step_takes_no_gradient_and_honours_the_switches(rig, evals):
+    _, (tm, _), _, state, tbatch = evals
+    assert all(not v.requires_grad for v in tm.values())
+    off = TT.eval_step(state, tbatch, rig["tcomp"], rig["tgen"], rig["tdis"], rig["tvgg"], None,
+                       TT.TrainConfig(use_gan=False, use_face=False), ns=NS)
+    assert float(off["val_g_face"]) == float(off["val_g_adv"]) == 0
+    assert float(off["val_g_rec"]) == pytest.approx(float(tm["val_g_rec"]), rel=1e-6)
 
 
 def test_train_step_does_not_touch_the_modules_or_its_input_state(rig, steps):
