@@ -243,21 +243,26 @@ HAND_WRITTEN = re.compile(r"(raster|table|grid_sample|repack)_\w+_kernel(<\w+>)?
 
 def kernel_times(fn, reps: int = 1) -> list:
     """(device microseconds per call, name) of every kernel that `reps` calls of
-    `fn()` launch, from torch.profiler."""
+    `fn()` launch, from torch.profiler. Every `fn` profiled here launches a
+    kernel, so a trace without one is a lost reading: it is taken again, up
+    to three times, and then raises rather than report 0."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us and ev.device_type == torch.autograd.DeviceType.CUDA:
-            out.append((us / reps, ev.key))
-    return out
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = []
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            if us and ev.device_type == torch.autograd.DeviceType.CUDA:
+                out.append((us / reps, ev.key))
+        if out:
+            return out
+    raise RuntimeError("torch.profiler caught no device kernel in three traces")
 
 
 def device_us_by_kernel(fn, reps: int = 5) -> dict:
@@ -757,7 +762,7 @@ def main_path(device) -> tuple[dict, dict]:
     breakdown = device_breakdown(lambda: imit.synthesize_frames(comp, gen, cache, batch))
     syncs = host_syncs(lambda: imit.synthesize_frames(comp, gen, cache, batch))
 
-    ctx = {"comp": comp, "gen": gen, "cache": cache, "smpls": smpls, "pred_csr": pred_k,
+    ctx = {"comp": comp, "gen": gen, "cache": cache, "smpls": smpls, "pred_csr": pred_k, "frames": frames,
            "chunk_ms": chunk_ms, "idle_share": 1 - breakdown["busy"] / chunk_ms}
     return ctx, {
         "model": "AttLWB-SPADE", "params": n_params, "size": SIZE, "ns": NS,
@@ -1088,17 +1093,18 @@ def state_agreement(a, b, lr: float, what: str) -> dict:
     return out
 
 
-def train_rig(comp, batch, device):
+def train_rig(comp, batch, device, gen_name: str = "AttLWB-SPADE"):
     """The personalization step's networks at full width with seeded weights
-    (G seed 0, D 1, VGG19 2, Sphere20a 3): (initial state, step function
-    state -> (state, metrics) on `batch`, face crop size)."""
+    (G `gen_name` seed 0, D 1, VGG19 2, Sphere20a 3): (initial state, step
+    function state -> (state, metrics) on `batch`, face crop size, (G, D,
+    VGG, face))."""
     from ipercore_tpu_torch.models.networks import build_discriminator, build_generator
     from ipercore_tpu_torch.models.networks import criterions as C
     from ipercore_tpu_torch.trainers import lwg_trainer as T
     from ipercore_tpu_torch.utils.checkpoint import load_generator_params, seeded_flat_params
 
-    gen = build_generator("AttLWB-SPADE", CFG, device=device)
-    load_generator_params(gen, seeded_flat_params(CFG, 0))
+    gen = build_generator(gen_name, CFG, num_source=NS, device=device)
+    load_generator_params(gen, seeded_flat_params(gen, 0))
     dis = build_discriminator("patch_global", DIS_CFG, device=device)
     load_generator_params(dis, seeded_flat_params(dis, 1))
     vgg = C.build_vgg(device=device)
@@ -1107,7 +1113,7 @@ def train_rig(comp, batch, device):
     load_generator_params(face, seeded_flat_params(face, 3))
     cfg = T.TrainConfig()
     step = lambda st: T.train_step(st, batch, comp, gen, dis, vgg, face, cfg, ns=NS)
-    return T.create_train_state(gen, dis, cfg), step, hw
+    return T.create_train_state(gen, dis, cfg), step, hw, (gen, dis, vgg, face)
 
 
 def train_phase(device) -> dict:
@@ -1137,7 +1143,7 @@ def train_phase(device) -> dict:
     # networks at full width, then one step: the first step's cost
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state0, step, hw = train_rig(comp, batch, device)
+    state0, step, hw, _ = train_rig(comp, batch, device)
     cfg = T.TrainConfig()
     zero_counts()
     state1, metrics1 = step(state0)
@@ -1540,6 +1546,372 @@ def train_service_phase(device) -> dict:
     })
     return out
 
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the generator zoo, its two trainers
+# ---------------------------------------------------------------------------
+
+ZOO_LWB = ("AttLWB-AdaIN", "AddLWB", "AvgLWB", "SoftGateAddLWB", "SoftGateAvgLWB", "AttLWB-Front")
+ZOO_BASELINES = ("InputConcat", "TextureWarping")
+ZOO_TRAINERS = ("LWGFrontTrainer", "BaselineTrainer")
+ZOO_WARMUP, ZOO_STEPS = 2, 5
+
+
+def zoo_geometry_checks(comp, cache, batch) -> dict:
+    """K1 and K2 on a zoo chunk's inputs and K3 on its sources, each bit-equal
+    to its plain version."""
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.ops import rasterizer as rz
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+    from ipercore_tpu_torch.ops import sampling_cuda as sc
+
+    model = comp.model
+
+    def faces_of(theta):
+        d = smpl_mod.get_details(model, theta)
+        return rz.verts_to_faces(rz.project_verts(d["verts"], d["cam"]), model.faces).contiguous()
+
+    fv = faces_of(batch)
+    aux = torch.cat([comp.assets.f2uvs[None], cache.src_f2pts], dim=0).contiguous()
+    fim, flows = rc.raster_flows(fv, aux, SIZE)
+    fim_p, flows_p = rc.raster_flows_plain(fv, aux, SIZE)
+    raster_agreement(fim, fim_p, flows, flows_p, "raster_flows/zoo chunk", bit_equal=True)
+    imgs = cache.uv_img.expand((fv.shape[0],) + tuple(cache.uv_img.shape[1:]))
+    grid = flows[..., 0, :]
+    out, ref = sc.grid_sample_nhwc(imgs, grid), sc.grid_sample_plain(imgs, grid)
+    check(torch.equal(out, ref), "grid_sample_nhwc/zoo chunk: not bit-equal to the plain version")
+    _, src_smpl = source_inputs(batch.device)
+    src_fv = faces_of(src_smpl[0])
+    o, r = rc.raster_fim(src_fv, SIZE), rc.raster_fim_plain(src_fv, SIZE)
+    raster_agreement(o.fim, r.fim, o.wim, r.wim, "raster_fim/zoo sources", bit_equal=True)
+    return {"raster_flows_csr": True, "grid_sample_nhwc": True, "raster_fim": True}
+
+
+def zoo_generators(comp, device) -> dict:
+    """Each other LWB generator at full width with seeded weights: setup, one
+    chunk of CHUNK frames with kernels against the plain versions, `chunk_ms`
+    by events after a warm-up."""
+    from ipercore_tpu_torch.models import imitator as imit
+    from ipercore_tpu_torch.models.networks import build_generator
+    from ipercore_tpu_torch.ops.dispatch import force_plain
+    from ipercore_tpu_torch.utils.checkpoint import load_generator_params, seeded_flat_params
+
+    src_img, src_smpl = source_inputs(device)
+    bg = torch.as_tensor(np.random.RandomState(7).uniform(-1, 1, (1, SIZE, SIZE, 3)).astype(np.float32),
+                         device=device)
+    out, bit_equal = {}, None
+    for name in ZOO_LWB:
+        gen = build_generator(name, CFG, device=device)
+        load_generator_params(gen, seeded_flat_params(gen, 0))
+        given_bg = bg if name == "AttLWB-Front" else None  # no BGNet: the background is given
+        zero_counts()
+        cache = imit.setup_source(comp, gen, src_img, src_smpl, bg_img=given_bg)
+        setup = read_counts()
+        smpls = imit.prepare_target_smpls(comp.model, cache, target_smpls(CHUNK, 1), cam_strategy="smooth")
+        batch = torch.as_tensor(smpls, device=device)
+        zero_counts()
+        pred_k, mask_k = imit.synthesize_frames(comp, gen, cache, batch)
+        chunk = read_counts()
+        with force_plain():
+            pred_p, _ = imit.synthesize_frames(comp, gen, cache, batch)
+        close = close_fraction(pred_k, pred_p)
+        check(close >= 0.995, f"zoo {name}: kernel and plain runs agree on {close} of values, < 0.995")
+        check(bool(torch.isfinite(pred_k).all()) and float(pred_k.std()) > 1e-3,
+              f"zoo {name}: frames not finite or constant")
+        check(float(pred_k.min()) >= -1 - 1e-3 and float(pred_k.max()) <= 1 + 1e-3, f"zoo {name}: frames leave [-1, 1]")
+        check(setup["raster_fim"] >= 1 and chunk["raster_flows_csr"] == 1 and chunk["grid_sample_nhwc"] == 1
+              and chunk["raster_fim"] == 0, f"zoo {name}: launches setup {setup}, chunk {chunk}")
+        if bit_equal is None:
+            bit_equal = zoo_geometry_checks(comp, cache, batch)
+        chunk_ms = cuda_ms(lambda: imit.synthesize_frames(comp, gen, cache, batch), reps=3, warmup=1)
+        out[name] = {"params": sum(p.numel() for p in gen.parameters()), "chunk": CHUNK, "chunk_ms": chunk_ms,
+                     "frames_per_s_device_chunk": CHUNK / (chunk_ms / 1e3),
+                     "launches_setup": setup, "launches_chunk": chunk, "kernel_vs_plain_close_fraction": close,
+                     "background": "given" if given_bg is not None else "BGNet"}
+        del gen, cache, pred_k, pred_p
+    return {"generators": out, "bit_equal_on_zoo_chunk": bit_equal}
+
+
+def zoo_baselines(device) -> dict:
+    """The baselines' training forward at full width (they have no
+    `forward_tsf`), timed by events."""
+    from ipercore_tpu_torch.models.networks import build_generator
+    from ipercore_tpu_torch.utils.checkpoint import load_generator_params, seeded_flat_params
+
+    rng = np.random.RandomState(9)
+    u = lambda *s: torch.as_tensor(rng.uniform(-1, 1, s).astype(np.float32), device=device)
+    ins = (u(1, 1, SIZE, SIZE, 4), u(1, NS, SIZE, SIZE, 6), u(1, 2, SIZE, SIZE, 6), u(1, 2, NS, SIZE, SIZE, 2))
+    out = {}
+    for name in ZOO_BASELINES:
+        gen = build_generator(name, CFG, num_source=NS, device=device)
+        load_generator_params(gen, seeded_flat_params(gen, 0))
+        with torch.no_grad():
+            zero_counts()
+            bg, imgs, masks = gen(*ins, only_tsf=False)
+            launches = read_counts()
+            check(imgs.shape == (1, 2, SIZE, SIZE, 3) and masks.shape == (1, 2, SIZE, SIZE, 1)
+                  and bool(torch.isfinite(imgs).all()) and float(imgs.std()) > 1e-3,
+                  f"zoo {name}: forward gave {tuple(imgs.shape)}")
+            check(not any(launches.values()), f"zoo {name}: a kernel ran in a baseline forward {launches}")
+            ms = cuda_ms(lambda: gen(*ins, only_tsf=False), reps=3, warmup=1)
+        out[name] = {"params": sum(p.numel() for p in gen.parameters()), "nt": 2, "forward_ms": ms}
+        del gen
+    return out
+
+
+def zoo_trainer(trainer: str, comp, batch, device) -> dict:
+    """One trainer of the zoo at full width: the first step (K3 twice), the
+    kernel step against the plain step from one state, `step_ms` by events
+    over ZOO_STEPS steps after ZOO_WARMUP, host syncs a step, and `eval_step`
+    with kernels against plain."""
+    from ipercore_tpu_torch.ops.dispatch import force_plain
+    from ipercore_tpu_torch.trainers import lwg_trainer as T
+    from ipercore_tpu_torch.trainers import resolve_trainer
+
+    gen_name = resolve_trainer(trainer)["default_gen"]
+    state0, step, _, nets = train_rig(comp, batch, device, gen_name=gen_name)
+    gen, dis, vgg, face = nets
+    cfg = T.TrainConfig()
+    zero_counts()
+    state1, _ = step(state0)
+    first = read_counts()
+    check(first["raster_fim"] == 2 and not any(first[k] for k in ("raster_flows_csr", "grid_sample_nhwc")),
+          f"zoo {trainer}: launches {first}")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sk, mk = step(state0)
+        with force_plain():
+            sp, mp = step(state0)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    loss_rel = {k: abs(float(mk[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-6) for k in mk}
+    check(max(loss_rel.values()) <= 1e-4, f"zoo {trainer}: kernel and plain losses differ {loss_rel}")
+    agreement = state_agreement(sk, sp, cfg.lr_g, f"zoo {trainer} kernel vs plain")
+    del sk, sp
+
+    holder = [state1]
+
+    def one():
+        holder[0], m = step(holder[0])
+        return m
+
+    for _ in range(ZOO_WARMUP):
+        one()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(ZOO_STEPS):
+        metrics = one()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / ZOO_STEPS
+    syncs = host_syncs(one)
+    losses = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in losses.values()), f"zoo {trainer}: losses not finite {losses}")
+    moved = max(float((holder[0].params_G[k] - state0.params_G[k]).abs().max()) for k in state0.params_G)
+    check(moved > 0, f"zoo {trainer}: the parameters did not move")
+
+    zero_counts()
+    ek = T.eval_step(holder[0], batch, comp, gen, dis, vgg, face, cfg, ns=NS)
+    eval_launches = read_counts()
+    check(eval_launches["raster_fim"] == 2, f"zoo {trainer}: eval launches {eval_launches}")
+    with force_plain():
+        ep = T.eval_step(holder[0], batch, comp, gen, dis, vgg, face, cfg, ns=NS)
+    eval_rel = {k: abs(float(ek[k]) - float(ep[k])) / max(abs(float(ep[k])), 1e-6) for k in ek}
+    check(max(eval_rel.values()) <= 1e-4, f"zoo {trainer}: eval with kernels vs plain {eval_rel}")
+    if gen_name == "AttLWB-Front":  # the real background stands in: no bg term
+        check(not hasattr(gen, "bg_net"), "zoo LWGFrontTrainer: the generator has a BGNet")
+    return {"generator": gen_name, "params_G": sum(v.numel() for v in state0.params_G.values()),
+            "step_ms": step_ms, "steps_per_s": 1e3 / step_ms, "timed_steps": ZOO_STEPS,
+            "warmup_steps": ZOO_WARMUP, "host_syncs_per_step": syncs, "k3_launches_per_step": first["raster_fim"],
+            "k3_launches_per_eval": eval_launches["raster_fim"], "kernel_vs_plain_loss_rel_diff": loss_rel,
+            "kernel_vs_plain_state": agreement, "eval_kernel_vs_plain_rel_diff": eval_rel,
+            "losses_last_step": losses, "param_max_move": moved}
+
+
+def zoo_train_service(device) -> dict:
+    """`services/train.train(max_iters=2)` with `train_name =
+    BaselineTrainer` in a 1-rank NCCL group; the checkpoint writer is
+    replaced by a recorder (no write in this phase)."""
+    import torch.distributed as dist
+
+    from ipercore_tpu_torch.parallel import mesh
+    from ipercore_tpu_torch.services import options
+    from ipercore_tpu_torch.services import train as svc
+
+    real_save, saves = svc.save_train_ckpt, []
+    env_keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+    env_before = {k: os.environ.get(k) for k in env_keys}
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        for i, name in enumerate(("v0", "v1")):
+            write_processed(data, name, 4, 31 + i, masks=True, background=True)
+        opt = options.setup(None, [])
+        # the options' gen_name (AttLWB-SPADE) would override the trainer's
+        opt.update(image_size=SIZE, num_source=NS, time_step=NT, batch_size=1, Generator=CFG,
+                   output_dir=os.path.join(root, "out"), model_id="baseline", dataset_dirs=[data],
+                   train_name="BaselineTrainer", gen_name="InputConcat")
+        opt.Discriminator.update(DIS_CFG)
+        opt.Train.update(print_freq_s=0.0, display_freq_s=1e9, save_latest_freq_s=1e9)
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        try:
+            dev = mesh.init_data_parallel(device, init_method="file://" + os.path.join(root, "store"))
+            check(dist.is_initialized() and mesh.world_size() == 1, "zoo train service: no 1-rank group")
+            svc.save_train_ckpt = lambda ckpt_dir, step, *a, **k: saves.append(step)
+            reduces0 = mesh.all_reduce_mean.calls
+            zero_counts()
+            t0 = time.perf_counter()
+            metrics = svc.train(opt, max_iters=2, device=dev)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = read_counts()
+            reduces = mesh.all_reduce_mean.calls - reduces0
+        finally:
+            svc.save_train_ckpt = real_save
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k, v in env_before.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    losses = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in losses.values()) and "g_total" in losses,
+          f"zoo train service: losses {losses}")
+    check(saves == [2], f"zoo train service: checkpoint calls at {saves}")
+    # the composer's UV raster, then each iteration the step's sources and
+    # target and the eval's (no val.txt: every video is held out too)
+    check(launches["raster_fim"] == 1 + (2 + 2) * 2 and reduces == 2 * 2,
+          f"zoo train service: launches {launches}, all-reduces {reduces}")
+    return {"trainer": "BaselineTrainer", "generator": "InputConcat", "iterations": 2, "wall_s": wall_s,
+            "k3_launches": launches["raster_fim"], "nccl_all_reduces": reduces, "checkpoint_writes": 0,
+            "losses_last_step": losses}
+
+
+def zoo_phase(device) -> dict:
+    from ipercore_tpu_torch.models import flow_composition as fc
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.models.mesh import load_assets
+
+    model = smpl_mod.template_model(device=device)
+    comp = fc.make_composer(model, load_assets(model, device=device), image_size=SIZE, out_dilate_ks=51)
+    out = {"size": SIZE, "ns": NS, "dtype": "float32", "tf32": False}
+    out.update(zoo_generators(comp, device))
+    out["baselines"] = zoo_baselines(device)
+    batch = train_batch(device)
+    out["trainers"] = {t: zoo_trainer(t, comp, batch, device) for t in ZOO_TRAINERS}
+    out["train_service"] = zoo_train_service(device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the evaluate service on the main path's frames
+# ---------------------------------------------------------------------------
+
+def timed_call(fn):
+    """(result, wall ms with the host work, device ms of its kernels) of one
+    `fn()` after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, sum(us for us, _ in kernel_times(fn)) / 1e3
+
+
+def evaluate_phase(ctx, device) -> dict:
+    """`evaluate_frames` on the main path's frames against the same frames
+    with the plain versions forced, with the exact nets (seeded LPIPS and
+    Inception weights given) and with the proxies; each metric timed; one
+    chunk under `compute_dtype=bfloat16` scored against the f32 chunk."""
+    from ipercore_tpu_torch.models import imitator as imit
+    from ipercore_tpu_torch.models.networks import criterions as C
+    from ipercore_tpu_torch.models.networks.inception import InceptionV3Features
+    from ipercore_tpu_torch.ops.dispatch import force_plain
+    from ipercore_tpu_torch.services import evaluate as E
+    from ipercore_tpu_torch.services.run_imitator import imitate_sequence
+    from ipercore_tpu_torch.utils.checkpoint import seeded_flat_params
+
+    comp, gen, cache, smpls = ctx["comp"], ctx["gen"], ctx["cache"], ctx["smpls"]
+    frames = ctx["frames"]
+    with force_plain():
+        plain = imitate_sequence(comp, gen, cache, smpls, chunk=CHUNK, device=device)
+    metric = E.PerceptualMetric(params=seeded_flat_params(C.VGGFeatures(), 2), device=device)
+    # LPIPS's learned 1x1 weights are non-negative (a distance): seeded, then |.|
+    lpips_flat = {k: np.abs(v) if "/lin" in k else v for k, v in seeded_flat_params(C.LPIPSLin(), 5).items()}
+    with tempfile.TemporaryDirectory() as root:
+        nothing = os.path.join(root, "absent")
+        exact = {"lpips_net": E.LPIPSMetric(weights_path=nothing, params=lpips_flat, device=device),
+                 "fid_net": E.InceptionFID(weights_path=nothing,
+                                           params=seeded_flat_params(InceptionV3Features(), 6), device=device)}
+        proxy = {"lpips_net": E.LPIPSMetric(weights_path=nothing, device=device),
+                 "fid_net": E.InceptionFID(weights_path=nothing, device=device)}
+    check(exact["lpips_net"].available and exact["fid_net"].available
+          and not proxy["lpips_net"].available and not proxy["fid_net"].available,
+          "evaluate: the metric nets' weights are not as given")
+    t0 = time.perf_counter()
+    with_exact = E.evaluate_frames(frames, plain, metric=metric, device=device, **exact)
+    exact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with_proxy = E.evaluate_frames(frames, plain, metric=metric, device=device, **proxy)
+    proxy_s = time.perf_counter() - t0
+    check(set(with_exact) == {"ssim", "psnr", "lpips", "fid"}
+          and set(with_proxy) == {"ssim", "psnr", "lpips_proxy", "fid_proxy"},
+          f"evaluate: keys {sorted(with_exact)} / {sorted(with_proxy)}")
+    check(all(np.isfinite(v) for v in list(with_exact.values()) + list(with_proxy.values())),
+          f"evaluate: not finite {with_exact} {with_proxy}")
+    check(with_exact["ssim"] >= 0.999 and with_exact["psnr"] >= 40.0,
+          f"evaluate: kernel and plain frames score ssim {with_exact['ssim']}, psnr {with_exact['psnr']}")
+    # the metrics tell frames apart: each frame against the one before it
+    shifted = np.roll(plain, 1, axis=0)
+    far = {"lpips": float(np.mean(exact["lpips_net"](frames, shifted))),
+           "psnr": float(E.psnr(torch.as_tensor(frames, device=device),
+                                torch.as_tensor(shifted, device=device)).mean())}
+    check(far["lpips"] > with_exact["lpips"] and far["psnr"] < with_exact["psnr"],
+          f"evaluate: shifted frames score {far} against {with_exact}")
+
+    a = torch.as_tensor(frames, device=device)
+    b = torch.as_tensor(plain, device=device)
+    times = {}
+    for name, fn in (("ssim", lambda: E.ssim(a, b)), ("psnr", lambda: E.psnr(a, b)),
+                     ("lpips", lambda: exact["lpips_net"](frames, plain)),
+                     ("lpips_proxy", lambda: metric(frames, plain)),
+                     ("inception_features_299", lambda: exact["fid_net"].features(frames)),
+                     ("proxy_features", lambda: metric.feature_stats(frames))):
+        _, wall, dev = timed_call(fn)
+        times[name] = {"wall_ms": wall, "device_ms": dev}
+    mu1, c1 = exact["fid_net"].feature_stats(frames)
+    mu2, c2 = exact["fid_net"].feature_stats(plain)
+    t0 = time.perf_counter()
+    E.frechet_distance(mu1, c1, mu2, c2)
+    times["frechet_2048_host"] = {"wall_ms": (time.perf_counter() - t0) * 1e3, "device_ms": 0.0}
+    mu1, c1 = metric.feature_stats(frames)
+    mu2, c2 = metric.feature_stats(plain)
+    t0 = time.perf_counter()
+    E.frechet_distance(mu1, c1, mu2, c2)
+    times["frechet_512_host"] = {"wall_ms": (time.perf_counter() - t0) * 1e3, "device_ms": 0.0}
+
+    # quality beside a speed choice: one chunk in bf16 against the f32 chunk
+    batch = torch.as_tensor(smpls[:CHUNK], device=device)
+    f32 = ctx["pred_csr"]
+    bf16, bf16_mask = imit.synthesize_frames(comp, gen, cache, batch, compute_dtype=torch.bfloat16)
+    _, f32_mask = imit.synthesize_frames(comp, gen, cache, batch)
+    bf16_ms = cuda_ms(lambda: imit.synthesize_frames(comp, gen, cache, batch, compute_dtype=torch.bfloat16),
+                      reps=3, warmup=1)
+    f32_np, bf16_np = f32.cpu().numpy(), bf16.float().cpu().numpy()
+    quality = {"ssim": float(E.ssim(f32, bf16.float()).mean()), "psnr": float(E.psnr(f32, bf16.float()).mean()),
+               "lpips_proxy": float(np.mean(metric(bf16_np, f32_np))),
+               # where the mask is 1 the frame is the setup's f32 background, so
+               # the mask itself and its foreground share say what bf16 touched
+               "mask_max_abs_diff": float((bf16_mask.float() - f32_mask).abs().max()),
+               "foreground_share_f32": float((1.0 - f32_mask).mean())}
+    check(all(np.isfinite(v) for v in quality.values()), f"evaluate: bf16 scores {quality}")
+    return {"frames": int(len(frames)), "size": SIZE, "exact_seeded_nets": with_exact, "proxies": with_proxy,
+            "against_previous_frame": far, "evaluate_frames_s": {"exact": exact_s, "proxy": proxy_s},
+            "metric_ms": times,
+            "bf16_chunk_vs_f32": dict(quality, chunk=CHUNK, bf16_chunk_ms=bf16_ms, f32_chunk_ms=ctx["chunk_ms"])}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1582,6 +1954,8 @@ def main() -> int:
     table = table_route(ctx, device)
     emit("table_route", **table)
     emit("temporal", **temporal_phase(ctx, device))
+    evaluated = evaluate_phase(ctx, device)
+    emit("evaluate", **evaluated)
     del ctx
     services = services_phase(device)
     service_runs = {k: services.pop(k) for k in ("personalize", "imitate_personalized", "personalize_again")}
@@ -1590,11 +1964,24 @@ def main() -> int:
     emit("personalize", service=service_runs, train_step=train)
     service_train = train_service_phase(device)
     emit("train_service", **service_train)
+    zoo = zoo_phase(device)
+    emit("zoo", **zoo)
 
     # launches: K1-K3 on the main path's run, K4 on the table route's
     launches = dict(result["launches"], raster_flows_table=table["launches"]["raster_flows_table"])
     kernels["raster_fim"]["launches_per_train_step"] = train["k3_launches_per_step"]
     kernels["raster_fim"]["launches_per_train_service_iteration"] = service_train["k3_launches_per_iter"]
+    # the zoo's paths: per chunk and per setup of each other LWB generator, per
+    # step and per eval of its two trainers
+    for name in ("raster_flows_csr", "grid_sample_nhwc", "raster_fim"):
+        kernels[name]["launches_zoo_per_chunk"] = {
+            g: v["launches_chunk"][name] for g, v in zoo["generators"].items()}
+        kernels[name]["launches_zoo_per_setup"] = {
+            g: v["launches_setup"][name] for g, v in zoo["generators"].items()}
+    kernels["raster_fim"]["launches_per_zoo_train_step"] = {
+        t: v["k3_launches_per_step"] for t, v in zoo["trainers"].items()}
+    kernels["raster_fim"]["launches_per_zoo_eval_step"] = {
+        t: v["k3_launches_per_eval"] for t, v in zoo["trainers"].items()}
     line = {"kernels": [
         {"name": name, "replaces": REPLACES[name], "launches": launches[name],
          "ms": v["wrapper_ms"], **v}  # `ms`: the whole call, as a user of the wrapper pays it

@@ -5,7 +5,9 @@ from ipercore_tpu_torch.models.networks.discriminators import (  # noqa: F401
 )
 from ipercore_tpu_torch.models.networks.generators import (  # noqa: F401
     GENERATOR_NAMES,
+    InputConcatGenerator,
     LWBGenerator,
     ResNetInpaintor,
+    TextureWarpingGenerator,
     build_generator,
 )

@@ -1,8 +1,10 @@
 """Shared network building blocks (torch.nn, NHWC at every call).
 
-Twin of `ipercore_tpu/models/networks/blocks.py` for the AttLWB-SPADE
-generator. Every module takes and returns NHWC tensors like its Flax
-counterpart and permutes to NCHW only around its convolutions. Submodules
+Twin of `ipercore_tpu/models/networks/blocks.py`: the blocks of every
+Liquid-Warping generator (attention LWB with SPADE or AdaIN, the add / avg
+and soft-gated fusions, the auto-encoder of the baselines). Every module
+takes and returns NHWC tensors like its Flax counterpart and permutes to NCHW
+only around its convolutions. Submodules
 carry the Flax auto-names (`Conv_0`, `ConvTranspose_1`, `SPADE_0`, ...), so a
 flat Flax checkpoint key `params/a/b/kernel` maps to the state-dict key
 `a.b.weight` with no table (`utils/checkpoint.flax_params_to_torch`).
@@ -238,9 +240,31 @@ def attention_fuse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     return torch.einsum("nshw,nshwc->nhwc", alpha, v)
 
 
+def adain(content: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+          eps: float = 1e-5) -> torch.Tensor:
+    """AdaIN with per-pixel channel statistics: `content` (NHWC) normalized by
+    its channel mean and std (unbiased, ddof = 1) and re-styled by (gamma,
+    beta)."""
+    mean = content.mean(dim=-1, keepdim=True)
+    std = content.std(dim=-1, keepdim=True, unbiased=True)
+    return (content - mean) / (std + eps) * gamma + beta
+
+
+def _warped(x, flow, pre_warped: bool, h: int, w: int):
+    """(bs, n, H', W', c) features -> (bs * n, h, w, c), warped by `flow`
+    (bs, n, H, W, 2) unless `pre_warped`."""
+    bs, n = x.shape[0], x.shape[1]
+    if pre_warped:
+        return x.reshape((bs * n, h, w) + tuple(x.shape[4:]))
+    return warp(x.reshape((bs * n,) + tuple(x.shape[2:])),
+                flow.reshape((bs * n,) + tuple(flow.shape[2:])))
+
+
 class SelfAttentionLWB(nn.Module):
     """Attention-fuse (pre-)warped source features and modulate the transfer
-    stream by SPADE (mode="spade", the only mode ported so far). With
+    stream: by SPADE conditioned on the fused feature (mode="spade"), or by
+    AdaIN with the fused feature's channel std (ddof = 1) and mean as gamma
+    and beta (mode="adain", no weights besides fq / fk / fv). With
     `temporal`, warped features of previous predictions join the sources as
     extra keys and values through the same `fk` / `fv` convolutions, so a
     temporal block has no weights of its own."""
@@ -248,23 +272,15 @@ class SelfAttentionLWB(nn.Module):
     def __init__(self, channel: int, src_channel: int, tsf_channel: int, mode: str = "spade",
                  temporal: bool = False):
         super().__init__()
-        if mode != "spade":
-            raise NotImplementedError(
-                f"SelfAttentionLWB mode {mode!r} belongs to a later slice of the port")
-        self.channel = channel
+        if mode not in ("spade", "adain"):
+            raise ValueError(f"unknown SelfAttentionLWB mode {mode}")
+        self.channel, self.mode = channel, mode
         self.temporal = temporal
         self.fk = _conv(src_channel, channel, 1)
         self.fv = _conv(src_channel, channel, 1)
         self.fq = _conv(tsf_channel, channel, 1)
-        self.SPADE_0 = SPADE(norm_nc=tsf_channel, cond_nc=channel)
-
-    def _warped(self, x, flow, pre_warped: bool, h: int, w: int):
-        """(bs, n, H', W', c) features -> (bs * n, h, w, c), warped."""
-        bs, n = x.shape[0], x.shape[1]
-        if pre_warped:
-            return x.reshape((bs * n, h, w) + tuple(x.shape[4:]))
-        return warp(x.reshape((bs * n,) + tuple(x.shape[2:])),
-                    flow.reshape((bs * n,) + tuple(flow.shape[2:])))
+        if mode == "spade":
+            self.SPADE_0 = SPADE(norm_nc=tsf_channel, cond_nc=channel)
 
     def forward(self, tsf_x, src_x, Tst=None, temp_x=None, Ttt=None, pre_warped: bool = False):
         """
@@ -282,13 +298,46 @@ class SelfAttentionLWB(nn.Module):
         """
         bs, ns = src_x.shape[0], src_x.shape[1]
         h, w = tsf_x.shape[1], tsf_x.shape[2]
-        src_warp = self._warped(src_x, Tst, pre_warped, h, w)
+        src_warp = _warped(src_x, Tst, pre_warped, h, w)
         K = [conv_nhwc(self.fk, src_warp).reshape(bs, ns, h, w, self.channel)]
         V = [conv_nhwc(self.fv, src_warp).reshape(bs, ns, h, w, self.channel)]
         if self.temporal and temp_x is not None and Ttt is not None:
             nt = temp_x.shape[1]
-            temp_warp = self._warped(temp_x, Ttt, pre_warped, h, w)
+            temp_warp = _warped(temp_x, Ttt, pre_warped, h, w)
             K.append(conv_nhwc(self.fk, temp_warp).reshape(bs, nt, h, w, self.channel))
             V.append(conv_nhwc(self.fv, temp_warp).reshape(bs, nt, h, w, self.channel))
         q = conv_nhwc(self.fq, tsf_x)
-        return self.SPADE_0(tsf_x, attention_fuse(q, torch.cat(K, dim=1), torch.cat(V, dim=1)))
+        x = attention_fuse(q, torch.cat(K, dim=1), torch.cat(V, dim=1))
+        if self.mode == "spade":
+            return self.SPADE_0(tsf_x, x)
+        return adain(tsf_x, x.std(dim=-1, keepdim=True, unbiased=True), x.mean(dim=-1, keepdim=True))
+
+
+class FusedLWB(nn.Module):
+    """The non-attention LWB fusions. `fuse` "add" / "avg": the sum / mean of
+    the transfer feature and the warped sources. `soft_gate`: the transfer
+    feature plus sigmoid(conv3(relu(conv3(tsf)))) times the sum / mean of the
+    warped sources (`Conv_0`, `Conv_1`: c -> c). Temporal features are not
+    used."""
+
+    def __init__(self, channel: int, fuse: str = "add", soft_gate: bool = False):
+        super().__init__()
+        if fuse not in ("add", "avg"):
+            raise ValueError(f"unknown FusedLWB fuse {fuse}")
+        self.fuse, self.soft_gate = fuse, soft_gate
+        if soft_gate:
+            self.Conv_0 = _conv(channel, channel, 3)
+            self.Conv_1 = _conv(channel, channel, 3)
+
+    def forward(self, tsf_x, src_x, Tst=None, temp_x=None, Ttt=None, pre_warped: bool = False):
+        """tsf_x (bs, h, w, c); src_x (bs, ns, H', W', c), warped by Tst
+        (bs, ns, H, W, 2) unless pre_warped. Returns (bs, h, w, c)."""
+        bs, ns = src_x.shape[0], src_x.shape[1]
+        h, w = tsf_x.shape[1], tsf_x.shape[2]
+        src_warp = src_x if pre_warped else _warped(src_x, Tst, False, h, w).reshape(bs, ns, h, w, -1)
+        if self.soft_gate:
+            fused = src_warp.sum(dim=1) if self.fuse == "add" else src_warp.mean(dim=1)
+            g = conv_nhwc(self.Conv_1, F.relu(conv_nhwc(self.Conv_0, tsf_x)))
+            return tsf_x + torch.sigmoid(g) * fused
+        stacked = torch.cat([tsf_x[:, None], src_warp], dim=1)
+        return stacked.sum(dim=1) if self.fuse == "add" else stacked.mean(dim=1)

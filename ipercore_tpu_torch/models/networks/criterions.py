@@ -1,8 +1,8 @@
 """Training criterions: VGG perceptual loss, face identity loss (Sphere20a or
 SENet-50 features), LSGAN, total variation, temporal smoothness, mask BCE, L1.
 
-Twin of `ipercore_tpu/models/networks/criterions.py` without `LPIPSLin`
-(which belongs with `services/evaluate`). The feature networks have the JAX
+Twin of `ipercore_tpu/models/networks/criterions.py`, with `LPIPSLin` (the
+published perceptual metric, used by `services/evaluate`). The feature networks have the JAX
 package's layer names, so its flat `.npz` checkpoints load strictly
 (`utils/checkpoint.load_params`). Every network takes NHWC images. The VGG
 pyramid runs in NCHW and returns NCHW feature maps (the loss is a mean of
@@ -144,6 +144,32 @@ def perceptual_loss(vgg: nn.Module, pred: torch.Tensor, target: torch.Tensor,
     with torch.no_grad():
         ft = vgg(target)
     return _l1_pyramid(fp, ft, weights)
+
+
+class LPIPSLin(nn.Module):
+    """LPIPS(lin) over the VGG16 pyramid, as the official
+    `lpips.LPIPS(net='vgg')`: its input scaling is the ImageNet normalization
+    of [-1, 1] inputs that `VGGFeatures` applies; the 5 slice taps are
+    normalized to unit length over channels (+1e-10), their squared
+    difference goes through a learned 1x1 bias-free conv (`lin{k}`), is
+    averaged over space and summed over the taps. Weights from
+    `utils/torch_convert.convert_lpips` load by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.vgg = VGGFeatures(slices=_VGG16_SLICES)
+        for k, widths in enumerate(_VGG16_SLICES):
+            self.add_module(f"lin{k}", nn.Conv2d(widths[-1], 1, 1, bias=False))
+
+    def forward(self, a, b):
+        """a, b: (N, H, W, 3) in [-1, 1] -> (N,) distances."""
+        n = a.shape[0]
+        total = 0.0
+        for k, f in enumerate(self.vgg(torch.cat([a, b]))):
+            f = f / torch.sqrt(torch.sum(f ** 2, dim=1, keepdim=True) + 1e-10)
+            d = (f[:n] - f[n:]) ** 2
+            total = total + getattr(self, f"lin{k}")(d).mean(dim=(1, 2, 3))
+        return total
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,18 @@
-"""Generators: BGNet inpaintor + the Liquid-Warping generator (AttLWB-SPADE).
+"""Generators: BGNet inpaintor + the Liquid-Warping generator family.
 
-Twin of `ipercore_tpu/models/networks/generators.py`. Only the default
-generator of the repo, AttLWB-SPADE, is ported, with and without temporal
-feedback, for inference (`forward_src` / `forward_tsf`) and for training
-(`forward` over nt time steps); the other registry names raise
-`NotImplementedError` naming the later slice.
+Twin of `ipercore_tpu/models/networks/generators.py`, all nine registry
+names:
+
+  * `LWBGenerator` with a fusion per stage: "spade" (AttLWB-SPADE, the
+    default, and AttLWB-Front, which has no BGNet), "adain" (AttLWB-AdaIN),
+    "add" / "avg" (AddLWB / AvgLWB), "softgate_add" / "softgate_avg"
+    (SoftGateAddLWB / SoftGateAvgLWB); with and without temporal feedback,
+    for inference (`forward_src` / `forward_tsf`) and for training
+    (`forward` over nt time steps);
+  * the baselines `InputConcatGenerator` (sources folded into channels next
+    to the target input, one auto-encoder) and `TextureWarpingGenerator`
+    (the UV-warped target input alone), which have no source stream and
+    return (bg, tsf_imgs, tsf_masks) from `forward`.
 
 Config mirrors the JAX package's:
 {"BGNet": {...}, "SIDNet": {...}, "TSFNet": {...}} with num_filters / n_res_block.
@@ -18,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ipercore_tpu_torch.models.networks.blocks import (
+    FusedLWB,
     RegressHeads,
     ResAutoEncoder,
     ResidualBlock,
@@ -67,8 +76,26 @@ class ResNetInpaintor(nn.Module):
         return torch.tanh(conv_nhwc(getattr(self, f"Conv_{self.n_stage}"), x))
 
 
+def _forward_bg(bg_net: nn.Module, bg_inputs):
+    """Inpaint background(s): (bs, ns, h, w, 4) -> (bs, ns, h, w, 3)."""
+    bs, ns = bg_inputs.shape[0], bg_inputs.shape[1]
+    out = bg_net(bg_inputs.reshape((bs * ns,) + tuple(bg_inputs.shape[2:])))
+    return out.reshape((bs, ns) + tuple(out.shape[1:]))
+
+
+def _bg_net(cfg) -> ResNetInpaintor:
+    return ResNetInpaintor(num_filters=tuple(_cfg_get(cfg, "BGNet", "num_filters", (64, 128, 128, 256))),
+                           n_res_block=int(_cfg_get(cfg, "BGNet", "n_res_block", 6)))
+
+
+FUSION_MODES = ("spade", "adain", "add", "avg", "softgate_add", "softgate_avg")
+
+
 class LWBGenerator(nn.Module):
-    """The Liquid-Warping generator with SPADE attention fusion.
+    """The Liquid-Warping generator. `fusion_mode` selects the fusion of the
+    warped source features into the transfer stream at every encoder and
+    residual stage (`FUSION_MODES`); `use_bg_net=False` drops BGNet
+    (AttLWB-Front: the background must then be given).
 
     `feat_warp_stride` > 1 warps LWB features on a coarser grid and upsamples
     back (active only where the feature map is at least 32 px after striding);
@@ -78,16 +105,13 @@ class LWBGenerator(nn.Module):
     def __init__(self, cfg, fusion_mode: str = "spade", use_bg_net: bool = True,
                  feat_warp_stride: int = 1, temporal: bool = False):
         super().__init__()
-        if fusion_mode != "spade":
-            raise NotImplementedError(
-                f"fusion mode {fusion_mode!r} belongs to a later slice of the port")
+        if fusion_mode not in FUSION_MODES:
+            raise ValueError(f"unknown fusion mode {fusion_mode!r}; have {FUSION_MODES}")
         self.feat_warp_stride = feat_warp_stride
         self.temporal = temporal
         self.use_bg_net = use_bg_net
         if use_bg_net:
-            self.bg_net = ResNetInpaintor(
-                num_filters=tuple(_cfg_get(cfg, "BGNet", "num_filters", (64, 128, 128, 256))),
-                n_res_block=int(_cfg_get(cfg, "BGNet", "n_res_block", 6)))
+            self.bg_net = _bg_net(cfg)
         sid_filters = tuple(_cfg_get(cfg, "SIDNet", "num_filters", (64, 128, 256)))
         sid_res = int(_cfg_get(cfg, "SIDNet", "n_res_block", 6))
         self.src_net = ResAutoEncoder(6, sid_filters, sid_res)
@@ -103,12 +127,18 @@ class LWBGenerator(nn.Module):
         self.tsf_heads = RegressHeads(tsf_filters[0])
         for i in range(tsf_res):
             self.add_module(f"tsf_res_blocks_{i}", ResidualBlock(tsf_filters[-1]))
+
+        def make_fusion(channel: int, src_channel: int) -> nn.Module:
+            if fusion_mode in ("spade", "adain"):
+                return SelfAttentionLWB(channel, src_channel, channel, mode=fusion_mode, temporal=temporal)
+            if fusion_mode in ("add", "avg"):
+                return FusedLWB(channel, fuse=fusion_mode)
+            return FusedLWB(channel, fuse=fusion_mode.split("_")[1], soft_gate=True)
+
         for i, c in enumerate(tsf_filters):
-            self.add_module(f"enc_fusion_{i}",
-                            SelfAttentionLWB(c, sid_filters[i], c, temporal=temporal))
+            self.add_module(f"enc_fusion_{i}", make_fusion(c, sid_filters[i]))
         for i in range(tsf_res):
-            self.add_module(f"res_fusion_{i}", SelfAttentionLWB(
-                tsf_filters[-1], sid_filters[-1], tsf_filters[-1], temporal=temporal))
+            self.add_module(f"res_fusion_{i}", make_fusion(tsf_filters[-1], sid_filters[-1]))
 
     # --- SIDNet -----------------------------------------------------------
     def forward_src(self, src_inputs, only_enc: bool = True):
@@ -137,11 +167,10 @@ class LWBGenerator(nn.Module):
 
     # --- BGNet --------------------------------------------------------------
     def forward_bg(self, bg_inputs):
-        """Inpaint background(s): (bs, ns, h, w, 4) -> (bs, ns, h, w, 3)."""
-        bs, ns = bg_inputs.shape[0], bg_inputs.shape[1]
-        flat = bg_inputs.reshape((bs * ns,) + tuple(bg_inputs.shape[2:]))
-        out = self.bg_net(flat)
-        return out.reshape((bs, ns) + tuple(out.shape[1:]))
+        """Inpaint background(s): (bs, ns, h, w, 4) -> (bs, ns, h, w, 3).
+        Without BGNet (AttLWB-Front) it raises AttributeError, as the JAX
+        twin does."""
+        return _forward_bg(self.bg_net, bg_inputs)
 
     # --- TSFNet (one time step) ----------------------------------------------
     def _prewarp(self, feats, flows):
@@ -211,7 +240,8 @@ class LWBGenerator(nn.Module):
         """Full forward over nt time steps.
 
         Args:
-            bg_inputs: (bs, nbg, h, w, 4).
+            bg_inputs: (bs, nbg, h, w, 4), or None (then, and without BGNet,
+                bg_img is None).
             src_inputs: (bs, ns, h, w, 6).
             tsf_inputs: (bs, nt, h, w, 6).
             Tst: (bs, nt, ns, h, w, 2); Ttt: (bs, nt - 1, h, w, 2) or None.
@@ -250,23 +280,92 @@ class LWBGenerator(nn.Module):
         return bg_img, src_imgs, src_masks, tsf_imgs, tsf_masks
 
 
-GENERATOR_NAMES = (
-    "AttLWB-SPADE", "AttLWB-Front", "AttLWB-AdaIN", "AddLWB", "AvgLWB",
-    "SoftGateAddLWB", "SoftGateAvgLWB", "InputConcat", "TextureWarping",
-)
+class _Baseline(nn.Module):
+    """The baselines' common part: BGNet and one `ResAutoEncoder` (`net`) run
+    on each time step's input."""
+
+    def __init__(self, cfg, cin: int):
+        super().__init__()
+        tsf_filters = tuple(_cfg_get(cfg, "TSFNet", "num_filters", (64, 128, 256)))
+        tsf_res = int(_cfg_get(cfg, "TSFNet", "n_res_block", 6))
+        self.net = ResAutoEncoder(cin, tsf_filters, tsf_res)
+        self.bg_net = _bg_net(cfg)
+
+    def forward_bg(self, bg_inputs):
+        """Inpaint background(s): (bs, ns, h, w, 4) -> (bs, ns, h, w, 3)."""
+        return _forward_bg(self.bg_net, bg_inputs)
+
+    def _step_input(self, src_inputs, tsf_t):
+        raise NotImplementedError
+
+    def forward(self, bg_inputs, src_inputs, tsf_inputs, Tst=None, Ttt=None, only_tsf: bool = True):
+        """bg_inputs (bs, nbg, h, w, 4) or None; src_inputs (bs, ns, h, w, 6);
+        tsf_inputs (bs, nt, h, w, 6); Tst, Ttt and only_tsf are not used.
+
+        Returns (bg_img or None, tsf_imgs (bs, nt, h, w, 3), tsf_masks
+        (bs, nt, h, w, 1)): a baseline has no source reconstruction."""
+        bg_img = self.forward_bg(bg_inputs) if bg_inputs is not None else None
+        imgs, masks = [], []
+        for t in range(tsf_inputs.shape[1]):
+            img, mask = self.net(self._step_input(src_inputs, tsf_inputs[:, t]))
+            imgs.append(img)
+            masks.append(mask)
+        return bg_img, torch.stack(imgs, 1), torch.stack(masks, 1)
+
+
+class InputConcatGenerator(_Baseline):
+    """Baseline without warping: the sources folded into channels (source
+    major) next to each step's target input, one auto-encoder of
+    `num_source * 6 + 6` input channels."""
+
+    def __init__(self, cfg, num_source: int = 2):
+        super().__init__(cfg, num_source * 6 + 6)
+
+    def _step_input(self, src_inputs, tsf_t):
+        bs, ns, h, w, c = src_inputs.shape
+        src_cat = src_inputs.permute(0, 2, 3, 1, 4).reshape(bs, h, w, ns * c)
+        return torch.cat([src_cat, tsf_t], dim=-1)
+
+
+class TextureWarpingGenerator(_Baseline):
+    """Baseline of UV-texture warping alone: the auto-encoder sees each step's
+    target input (the warped UV image and the target condition), no feature
+    warping."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg, 6)
+
+    def _step_input(self, src_inputs, tsf_t):
+        return tsf_t
+
+
+# the LWB family's names and their constructor arguments
+LWB_GENERATORS = {
+    "AttLWB-SPADE": dict(fusion_mode="spade", use_bg_net=True),
+    "AttLWB-Front": dict(fusion_mode="spade", use_bg_net=False),
+    "AttLWB-AdaIN": dict(fusion_mode="adain", use_bg_net=True),
+    "AddLWB": dict(fusion_mode="add", use_bg_net=True),
+    "AvgLWB": dict(fusion_mode="avg", use_bg_net=True),
+    "SoftGateAddLWB": dict(fusion_mode="softgate_add", use_bg_net=True),
+    "SoftGateAvgLWB": dict(fusion_mode="softgate_avg", use_bg_net=True),
+}
+GENERATOR_NAMES = tuple(LWB_GENERATORS) + ("InputConcat", "TextureWarping")
 
 
 def build_generator(name: str, cfg, temporal: bool = False, feat_warp_stride: int = 1,
-                    device: Union[str, torch.device] = "cuda") -> nn.Module:
-    """Build a generator in eval mode on `device`. Only "AttLWB-SPADE" is
-    ported; `temporal` adds the feedback of previous predictions (no new
-    weights)."""
+                    num_source: int = 2, device: Union[str, torch.device] = "cuda") -> nn.Module:
+    """Build a generator of `GENERATOR_NAMES` in eval mode on `device`.
+    `temporal` adds the feedback of previous predictions (no new weights) and
+    `feat_warp_stride` the strided feature warp, both for the LWB family;
+    `num_source` sets InputConcat's input channels (Flax infers them from the
+    first call)."""
     if name not in GENERATOR_NAMES:
         raise KeyError(f"unknown generator {name!r}; have {sorted(GENERATOR_NAMES)}")
-    if name != "AttLWB-SPADE":
-        raise NotImplementedError(
-            f"generator {name!r} is not ported yet: the rest of the generator zoo "
-            "belongs to the slice after temporal mode, viewer and swapper")
-    gen = LWBGenerator(cfg, fusion_mode="spade", use_bg_net=True,
-                       feat_warp_stride=feat_warp_stride, temporal=temporal)
+    if name == "InputConcat":
+        gen = InputConcatGenerator(cfg, num_source=num_source)
+    elif name == "TextureWarping":
+        gen = TextureWarpingGenerator(cfg)
+    else:
+        gen = LWBGenerator(cfg, feat_warp_stride=feat_warp_stride, temporal=temporal,
+                           **LWB_GENERATORS[name])
     return gen.to(device).eval()

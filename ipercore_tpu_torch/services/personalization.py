@@ -6,9 +6,10 @@ processed frames, and save `<output_dir>/models/<model_id>/personalized.npz`
 with the JAX package's keys and layout, which the imitation stage
 (`run_imitator.build_runtime`) then loads. Skips when that file exists.
 
-Weights without a pretrain: G from `seeded_flat_params(opt.Generator, 0)`, as
-`build_runtime` seeds it; D, the VGG and the face net from seeds 1, 2 and 3
-(the JAX package's Flax `PRNGKey` init cannot be reproduced). The loss
+`opt.gen_name` picks any generator of the registry. Weights without a
+pretrain: G from `seeded_flat_params(G, 0)`, as `build_runtime` seeds it; D,
+the VGG and the face net from seeds 1, 2 and 3 (the JAX package's Flax
+`PRNGKey` init cannot be reproduced). The loss
 networks load their shipped checkpoints when they are on disk
 (`criterions.init_vgg_params` / `init_face_params`).
 """
@@ -38,10 +39,20 @@ def load_pretrained_generator(opt, generator: torch.nn.Module) -> Optional[dict[
     Candidates in order: `opt.load_path_G`, then
     `<output_dir>/models/pretrains/AttLWB-SPADE_G.npz`, then the repository's
     `assets/lwg_pretrained_G.npz`. A missing file is passed over, and so is a
-    checkpoint that does not fit `generator` (missing keys or other shapes).
-    A `.pth` candidate raises: its converter is not ported yet.
+    `.npz` that does not fit `generator` (missing keys or other shapes). A
+    `.pth` / `.pt` (the reference's torch checkpoint, a state dict, or a dict
+    holding one under "state_dict") is read with `weights_only=True` and
+    converted by `utils.torch_convert.convert_generator` over
+    `seeded_flat_params(generator, 0)`: entries it does not name keep their
+    seeded values, and their count is printed.
     """
-    from ipercore_tpu_torch.utils.checkpoint import WEIGHTS_DIR, flax_params_to_torch, load_flat_npz
+    from ipercore_tpu_torch.utils.checkpoint import (
+        WEIGHTS_DIR,
+        flax_params_to_torch,
+        load_flat_npz,
+        seeded_flat_params,
+    )
+    from ipercore_tpu_torch.utils.torch_convert import convert_generator
 
     candidates = [
         str(opt.get("load_path_G", "") or ""),
@@ -61,9 +72,13 @@ def load_pretrained_generator(opt, generator: torch.nn.Module) -> Optional[dict[
                 continue
             return flat
         if p.endswith((".pth", ".pt")):
-            raise NotImplementedError(
-                f"{p}: a torch checkpoint needs utils/torch_convert.convert_generator, "
-                "which is not ported yet; convert it to .npz with the JAX package")
+            sd = torch.load(p, map_location="cpu", weights_only=True)
+            if isinstance(sd, dict) and "state_dict" in sd:
+                sd = sd["state_dict"]
+            flat, report = convert_generator(sd, seeded_flat_params(generator, 0))
+            if report:
+                print(f"[personalize] {p}: {len(report)} unconverted entries")
+            return flat
     return None
 
 
@@ -134,7 +149,8 @@ def personalize(opt, device: Device = "cuda") -> str:
     assets = load_assets(model, device=device, synthetic=bool(opt.get("smoke_model", False)))
     S = int(opt.image_size)
     comp = fc.make_composer(model, assets, image_size=S, out_dilate_ks=int(opt.get("out_dilate_ks", 51)))
-    gen = build_generator(opt.get("gen_name", "AttLWB-SPADE"), opt.Generator, device=device)
+    ns = int(opt.num_source)
+    gen = build_generator(opt.get("gen_name", "AttLWB-SPADE"), opt.Generator, num_source=ns, device=device)
     dis = build_discriminator(opt.get("dis_name", "patch_global"), opt.Discriminator, device=device)
     load_generator_params(dis, seeded_flat_params(dis, 1))
     vgg = C.init_vgg_params(C.build_vgg(device=device), seed=2)
@@ -145,9 +161,8 @@ def personalize(opt, device: Device = "cuda") -> str:
         lambda_face=float(tr.lambda_face), lambda_mask=float(tr.lambda_mask),
         lambda_mask_smooth=float(tr.lambda_mask_smooth), lambda_d_prob=float(tr.lambda_D_prob),
         lr_g=float(tr.lr_G), lr_d=float(tr.lr_D), use_face=bool(tr.use_face))
-    ns = int(opt.num_source)
     flat_G = load_pretrained_generator(opt, gen)
-    load_generator_params(gen, flat_G if flat_G is not None else seeded_flat_params(opt.Generator, 0))
+    load_generator_params(gen, flat_G if flat_G is not None else seeded_flat_params(gen, 0))
     state = T.create_train_state(gen, dis, cfg)
 
     n_iters = int(tr.get("niters_or_epochs_no_decay", 100)) + int(tr.get("niters_or_epochs_decay", 0))

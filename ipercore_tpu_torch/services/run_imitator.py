@@ -13,7 +13,8 @@ imitation stage alone on already processed inputs, after
 `services/personalization.personalize` when personalized weights are wanted.
 
 Weights: `<output_dir>/models/<model_id>/personalized.npz` when it exists,
-else `seeded_flat_params(opt.Generator, seed=0)`. (The JAX package initialises
+else `seeded_flat_params(G, seed=0)` for the generator `opt.gen_name` (any
+LWB generator; AttLWB-Front needs the background given). (The JAX package initialises
 Flax from `PRNGKey(0)` instead, which PyTorch cannot reproduce.)
 """
 from __future__ import annotations
@@ -73,7 +74,7 @@ def build_runtime(opt, device: Device = "cuda"):
                           feat_warp_stride=int(opt.get("feat_warp_stride", 1)), device=device)
     personalized = personalized_path(opt)
     flat = (load_flat_npz(personalized) if os.path.exists(personalized)
-            else seeded_flat_params(opt.Generator, seed=0))
+            else seeded_flat_params(gen, seed=0))
     load_generator_params(gen, flat)
     return model, comp, gen
 

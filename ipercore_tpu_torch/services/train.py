@@ -18,7 +18,9 @@ clock (`print_freq_s`, `display_freq_s`, `save_latest_freq_s`), compared with
 i and is named `net_iter_<i>`, so a resumed run repeats index i, and the
 dataset iterator starts again from its seed.
 
-Weights: G from `seeded_flat_params(opt.Generator, 0)`, D from seed 1 (the JAX
+`opt.train_name` picks the trainer of `trainers.TRAINER_REGISTRY` (its
+aug-bg branch and its generator, unless `opt.gen_name` names another).
+Weights: G from `seeded_flat_params(G, 0)`, D from seed 1 (the JAX
 package's Flax `PRNGKey` init cannot be reproduced); the VGG from
 `Train.vgg_loss_path` (or the shipped file, or seed 2) and the face net from
 `Train.face_loss_path` (or seed 3), as `personalize` loads them. Batches
@@ -70,17 +72,13 @@ def train(opt, max_iters: Optional[int] = None, device: Device = "cuda") -> dict
     nt = int(opt.get("time_step", 2))
 
     tspec = resolve_trainer(opt.get("train_name", "LWGTrainer"))
-    if tspec["default_gen"] != "AttLWB-SPADE":
-        raise NotImplementedError(
-            f"train: {opt.get('train_name')} trains {tspec['default_gen']}, and the generator zoo "
-            "(AttLWB-Front, InputConcat and the trainer's branches for them) is not ported yet")
     model = smpl_mod.resolve_body_model(opt, device=device)
     assets = load_assets(model, device=device, synthetic=bool(opt.get("smoke_model", False)))
     comp = fc.make_composer(model, assets, image_size=S, out_dilate_ks=int(opt.get("out_dilate_ks", 51)))
     aug_bg = bool(opt.get("aug_bg", tspec["aug_bg"]))
     gen = build_generator(opt.get("gen_name", tspec["default_gen"]), opt.Generator,
-                          temporal=bool(opt.get("temporal", False)), device=device)
-    load_generator_params(gen, seeded_flat_params(opt.Generator, 0))
+                          temporal=bool(opt.get("temporal", False)), num_source=ns, device=device)
+    load_generator_params(gen, seeded_flat_params(gen, 0))
     dis = build_discriminator(opt.get("dis_name", "patch_global_body_head"), opt.Discriminator,
                               use_aug_bg=aug_bg, device=device)
     load_generator_params(dis, seeded_flat_params(dis, 1))

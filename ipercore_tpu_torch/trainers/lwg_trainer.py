@@ -13,7 +13,11 @@ place.
     CUDA device its rasters go through the `raster_fim` kernel;
   * G loss: rec 10 * (L1(src) + L1(bg)) / 2, tsf 10 * VGG, face 5, adv 1
     (LSGAN, G target 0), mask 5 * BCE, tv 1. D runs with its old parameters
-    and takes no gradient (`torch.autograd.grad` with respect to G's);
+    and takes no gradient (`torch.autograd.grad` with respect to G's). Every
+    generator of the registry trains: without BGNet (AttLWB-Front) the real
+    background stands in for the predicted one (its L1 is 0); without a
+    source stream (InputConcat, TextureWarping: `_norm_gen_outputs`) rec is
+    10 * L1(bg) and only the target masks are supervised;
   * D loss on the G forward's output from before G's update, detached:
     LSGAN real = 1, fake = -1;
   * the optimizer is optax's chain clip_by_global_norm(10) -> adam(b1 = 0.5,
@@ -231,6 +235,48 @@ def _composite(color, mask, bg):
     return mask * bg + (1.0 - mask) * color
 
 
+def _norm_gen_outputs(outs):
+    """A generator's training outputs as the LWB 5-tuple (bg, src color, src
+    mask, tsf color, tsf mask). The baselines (InputConcat / TextureWarping)
+    have no source stream and give (bg, tsf color, tsf mask)."""
+    if len(outs) == 3:
+        bg, tsf_color, tsf_mask = outs
+        return bg, None, None, tsf_color, tsf_mask
+    return tuple(outs)
+
+
+def _gen_losses(outs, real_bg, src_img, masks, ns: int, S: int, cfg: TrainConfig, aug_bg=None):
+    """The generator's outputs composited, and the terms that need no loss
+    network: (fake_tsf_imgs (bs, nt, S, S, 3), fake_bg_b (bs, 1, S, S, 3),
+    loss_rec, fake_masks (N, S, S, 1)).
+
+    Without a predicted background (AttLWB-Front) the real one stands in, so
+    its reconstruction term is 0; without a source stream (the baselines)
+    rec is the background term alone and only the target masks are
+    supervised."""
+    fake_bg, fake_src_color, fake_src_mask, fake_tsf_color, fake_tsf_mask = _norm_gen_outputs(outs)
+    fake_aug_bg = None
+    if fake_bg is None:
+        fake_bg_b = real_bg[:, None]
+    else:
+        if aug_bg is not None:  # split off the appended aug sample
+            fake_aug_bg, fake_bg = fake_bg[:, -1], fake_bg[:, :-1]
+        fake_bg_b = fake_bg[:, 0:1]  # (bs, 1, S, S, 3) shared background
+    fake_tsf_imgs = _composite(fake_tsf_color, fake_tsf_mask, fake_bg_b)
+    bg_rec = C.l1_loss(fake_bg_b[:, 0], real_bg)
+    if fake_aug_bg is not None:
+        bg_rec = (bg_rec + C.l1_loss(fake_aug_bg, aug_bg)) / 2.0
+    if fake_src_color is not None:
+        fake_src_imgs = _composite(fake_src_color, fake_src_mask, fake_bg_b)
+        loss_rec = (C.l1_loss(fake_src_imgs, src_img) + bg_rec) / 2.0 * cfg.lambda_rec
+        fake_masks, body_masks = torch.cat([fake_src_mask, fake_tsf_mask], dim=1), masks
+    else:
+        loss_rec = bg_rec * cfg.lambda_rec
+        fake_masks, body_masks = fake_tsf_mask, masks[:, ns:]
+    loss_mask = C.mask_bce_loss(fake_masks.reshape(-1, S, S, 1), body_masks.reshape(-1, S, S, 1)) * cfg.lambda_mask
+    return fake_tsf_imgs, fake_bg_b, loss_rec, loss_mask, fake_masks.reshape(-1, S, S, 1)
+
+
 def _precision(cfg: TrainConfig, device: torch.device):
     """bf16 autocast for "bfloat16", else nothing (f32; `train_step` turns
     TF32 off around the whole step)."""
@@ -303,7 +349,7 @@ def _train_step(state, batch, comp, generator, discriminator, vgg, face, cfg, ns
     def apply_G(params, *inputs):
         with _precision(cfg, device):
             outs = functional_call(generator, params, inputs, {"only_tsf": False})
-        return [o.float() for o in outs]
+        return [o.float() if o is not None else None for o in outs]
 
     def apply_D(params, x):
         with _precision(cfg, device):
@@ -318,12 +364,8 @@ def _train_step(state, batch, comp, generator, discriminator, vgg, face, cfg, ns
         outs = checkpoint(apply_G, params_G, *g_inputs, use_reentrant=False)
     else:
         outs = apply_G(params_G, *g_inputs)
-    fake_bg, fake_src_color, fake_src_mask, fake_tsf_color, fake_tsf_mask = outs
-    fake_aug_bg = None
-    if aug_bg is not None:  # split off the appended aug sample
-        fake_aug_bg, fake_bg = fake_bg[:, -1], fake_bg[:, :-1]
-    fake_bg_b = fake_bg[:, 0:1]  # (bs, 1, S, S, 3) shared background
-    fake_tsf_imgs = _composite(fake_tsf_color, fake_tsf_mask, fake_bg_b)
+    fake_tsf_imgs, _, loss_rec, loss_mask, fake_masks = _gen_losses(
+        outs, real_bg, src_img, masks, ns, S, cfg, aug_bg)
     flat_tsf = fake_tsf_imgs.reshape(bs * nt, S, S, 3)
 
     if cfg.use_gan:  # D with its old parameters, taking no gradient
@@ -331,19 +373,12 @@ def _train_step(state, batch, comp, generator, discriminator, vgg, face, cfg, ns
         loss_adv = C.lsgan_loss(d_outs, 0.0) * cfg.lambda_d_prob
     else:
         loss_adv = zero
-    bg_rec = C.l1_loss(fake_bg_b[:, 0], real_bg)
-    if fake_aug_bg is not None:
-        bg_rec = (bg_rec + C.l1_loss(fake_aug_bg, aug_bg)) / 2.0
-    fake_src_imgs = _composite(fake_src_color, fake_src_mask, fake_bg_b)
-    loss_rec = (C.l1_loss(fake_src_imgs, src_img) + bg_rec) / 2.0 * cfg.lambda_rec
     loss_tsf = C.perceptual_loss(vgg, flat_tsf, real_tsf) * cfg.lambda_tsf
     if cfg.use_face:
         loss_face = C.face_loss(face, flat_tsf, real_tsf, head_bbox, head_bbox,
                                 hw=cfg.face_hw) * cfg.lambda_face
     else:
         loss_face = zero
-    fake_masks = torch.cat([fake_src_mask, fake_tsf_mask], dim=1).reshape(-1, S, S, 1)
-    loss_mask = C.mask_bce_loss(fake_masks, masks.reshape(-1, S, S, 1)) * cfg.lambda_mask
     loss_smooth = C.tv_loss(fake_masks) * cfg.lambda_mask_smooth
     total = loss_rec + loss_tsf + loss_face + loss_adv + loss_mask + loss_smooth
     g_grads = torch.autograd.grad(total, list(params_G.values()))
@@ -355,7 +390,7 @@ def _train_step(state, batch, comp, generator, discriminator, vgg, face, cfg, ns
         g_grads, metrics = reduced[:len(g_grads)], dict(zip(metrics, reduced[len(g_grads):]))
     new_params_G, new_opt_G = tx_g.apply(dict(zip(params_G, g_grads)), state.opt_G, state.params_G)
     fake_tsf = flat_tsf.detach()
-    del outs, fake_bg, fake_src_color, fake_src_mask, fake_tsf_color, fake_tsf_mask, total
+    del outs, fake_tsf_imgs, fake_masks, total
 
     # ------------------------------------------------------------------ D
     if cfg.use_gan:
@@ -406,14 +441,9 @@ def eval_step(state: LWGTrainState, batch: dict, comp: fc.FlowComposer, generato
         outs = functional_call(generator, state.params_G,
                                (comp_out["input_G_bg"], comp_out["input_G_src"], comp_out["input_G_tsf"],
                                 comp_out["Tst"], comp_out["Ttt"]), {"only_tsf": False})
-        fake_bg, fake_src_color, fake_src_mask, fake_tsf_color, fake_tsf_mask = outs
-        fake_bg_b = fake_bg[:, 0:1]
-        fake_tsf_imgs = _composite(fake_tsf_color, fake_tsf_mask, fake_bg_b)
+        fake_tsf_imgs, fake_bg_b, loss_rec, loss_mask, _ = _gen_losses(
+            outs, real_bg, src_img, masks, ns, S, cfg)
         flat_tsf = fake_tsf_imgs.reshape(bs * nt, S, S, 3)
-
-        bg_rec = C.l1_loss(fake_bg_b[:, 0], real_bg)
-        fake_src_imgs = _composite(fake_src_color, fake_src_mask, fake_bg_b)
-        loss_rec = (C.l1_loss(fake_src_imgs, src_img) + bg_rec) / 2.0 * cfg.lambda_rec
         loss_tsf = C.perceptual_loss(vgg, flat_tsf, real_tsf) * cfg.lambda_tsf
         zero = torch.zeros((), device=images.device)
         if cfg.use_face:
@@ -427,8 +457,6 @@ def eval_step(state: LWGTrainState, batch: dict, comp: fc.FlowComposer, generato
             loss_adv = C.lsgan_loss(d_outs, 0.0) * cfg.lambda_d_prob
         else:
             loss_adv = zero
-        fake_masks = torch.cat([fake_src_mask, fake_tsf_mask], dim=1)
-        loss_mask = C.mask_bce_loss(fake_masks.reshape(-1, S, S, 1), masks.reshape(-1, S, S, 1)) * cfg.lambda_mask
         total = loss_rec + loss_tsf + loss_face + loss_adv + loss_mask
         metrics = {"val_g_rec": loss_rec, "val_g_tsf": loss_tsf, "val_g_face": loss_face,
                    "val_g_adv": loss_adv, "val_g_mask": loss_mask, "val_g_total": total}

@@ -207,6 +207,9 @@ def seeded_flat_params(model, seed: int = 0) -> dict[str, np.ndarray]:
             fill[pre + "weight"] = 0.25
         elif isinstance(m, FrozenBatchNorm):
             fill[pre + "scale"] = fill[pre + "var"] = 1.0
+        for leaf in ("bn_scale", "bn_var"):  # a batch norm held by its conv (Inception)
+            if hasattr(m, leaf):
+                fill[pre + leaf] = 1.0
     rng = np.random.default_rng(seed)
     entries = []
     for k, v in model.state_dict().items():

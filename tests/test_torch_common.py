@@ -173,3 +173,62 @@ def write_train_video(root: str, name: str, n_frames: int, seed: int, size: int 
     if front_ids:
         info.set_array("ft_ids", np.asarray(front_ids, np.int64))
     info.serialize()
+
+
+def reference_generator_state_dict(flat: dict, seed: int) -> dict:
+    """A state dict in the reference's AttLWB-SPADE `.pth` layout (the torch
+    names `utils/torch_convert.convert_generator` reads, each the name map's
+    inverse) for the generator whose flat Flax parameters are `flat`, with
+    random values in torch's layout: conv weights (O, I, kH, kW), transposed
+    conv weights (I, O, kH, kW). Built from the name map alone: a run of
+    JAX's converter over it must report nothing missing."""
+    rng = np.random.RandomState(seed)
+    tree: dict = {}
+    for k in flat:
+        parts = k.split("/")[1:]
+        tree.setdefault("/".join(parts[:-1]), []).append(parts[-1])
+    n_res_bg = sum(1 for m in tree if m.startswith("bg_net/ResidualBlockIN_") and m.endswith("Conv_0"))
+
+    def torch_name(module: str) -> str:
+        p = module.split("/")
+        if p[0] == "bg_net":
+            if p[1].startswith("ResidualBlockIN_"):
+                i = int(p[1].split("_")[1])
+                return f"bg_net.main.{12 + i}.main.{0 if p[2] == 'Conv_0' else 3}"
+            if p[1].startswith("ConvTranspose_"):
+                return f"bg_net.main.{12 + n_res_bg + 3 * int(p[1].split('_')[1])}"
+            i = int(p[1].split("_")[1])
+            return "bg_net.main.0" if i == 0 else (f"bg_net.main.{3 * i}" if i <= 3 else
+                                                    f"bg_net.main.{12 + n_res_bg + 9}")
+        if p[0] == "src_net":
+            if p[1] == "encoders":
+                return f"src_net.encoders.layers.{p[2].split('_')[1]}.0"
+            if p[1] == "decoders":
+                return f"src_net.decoders.layers.{p[2].split('_')[1]}.0"
+            if p[1] == "heads":
+                return "src_net.img_reg.0" if p[2] == "Conv_0" else "src_net.att_reg.0"
+            return f"src_net.res_blocks.{p[1].split('_')[2]}.main.{0 if p[2] == 'Conv_0' else 2}"
+        if p[0].startswith("tsf_enc_"):
+            return f"tsf_net_enc.layers.{p[0].split('_')[2]}.0"
+        if p[0].startswith(("enc_fusion_", "res_fusion_")):
+            base = f"{p[0].split('_')[0]}_attlwbs.{p[0].split('_')[2]}"
+            if p[1] in ("fq", "fk", "fv"):
+                return f"{base}.{p[1]}"
+            return base + {"Conv_0": ".spade.mlp_shared.0", "Conv_1": ".spade.mlp_gamma",
+                           "Conv_2": ".spade.mlp_beta"}[p[2]]
+        if p[0].startswith("tsf_res_blocks_"):
+            return f"res_blocks.{p[0].split('_')[3]}.main.{0 if p[1] == 'Conv_0' else 2}"
+        if p[0] == "tsf_net_dec":
+            kind, i = p[1].split("_")
+            return f"tsf_net_dec.{'upconvs' if kind == 'ConvTranspose' else 'skippers'}.{i}.0"
+        return "tsf_img_reg.0" if p[1] == "Conv_0" else "tsf_att_reg.0"
+
+    sd = {}
+    for module, leaves in tree.items():
+        name = torch_name(module)
+        kh, kw, i, o = flat[f"params/{module}/kernel"].shape
+        shape = (i, o, kh, kw) if "ConvTranspose_" in module else (o, i, kh, kw)
+        sd[name + ".weight"] = rng.randn(*shape).astype(np.float32) * 0.05
+        if "bias" in leaves:
+            sd[name + ".bias"] = rng.randn(o).astype(np.float32) * 0.05
+    return sd

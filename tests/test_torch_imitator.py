@@ -24,6 +24,12 @@ from tests.test_torch_common import NARROW_CFG, flatten_flax, n, small_models, t
 S, NS = 128, 2
 
 
+def _unflatten(flat):
+    from ipercore_tpu.utils.checkpoint import _unflatten as unflatten
+
+    return unflatten(flat)
+
+
 def _close(a, b, frac=0.995, tol=1e-3, mean_tol=1e-4):
     """>= 99.5 % of values within 1e-3 and mean abs diff < 1e-4: a pixel on a
     silhouette edge may take another face in the two packages, the rest must
@@ -216,3 +222,43 @@ def test_table_route_off_its_tile_takes_the_exact_branch(monkeypatch):
     tp, tmask = timit.synthesize_frames(w["tcomp"], w["tgen"], w["tcache"], t(tgt))
     _close(tp, jp)
     _close(tmask, jmask)
+
+
+LWB_ZOO = ["AttLWB-Front", "AttLWB-AdaIN", "AddLWB", "AvgLWB", "SoftGateAddLWB", "SoftGateAvgLWB"]
+
+
+@pytest.mark.parametrize("name", LWB_ZOO)
+def test_zoo_generators_set_up_and_synthesize_as_jax(world, name):
+    """Every other LWB generator through `setup_source` and
+    `synthesize_frames` (2 frames) in both packages from the same seeded
+    weights, at the tolerance of the AttLWB-SPADE case. AttLWB-Front has no
+    BGNet: with the background given it runs, and without it `setup_source`
+    raises AttributeError in both packages."""
+    tgen = tbuild(name, NARROW_CFG, device="cpu")
+    flat = tckpt.seeded_flat_params(tgen, 4)
+    tckpt.load_generator_params(tgen, flat)
+    jgen = jbuild(name, NARROW_CFG)
+    params = jax.tree_util.tree_map(jnp.asarray, _unflatten(flat))
+    src_img, src_smpl = jnp.asarray(world["src_img"]), jnp.asarray(world["src_smpl"])
+    bg = None
+    if name == "AttLWB-Front":
+        with pytest.raises(AttributeError, match="bg_net"):
+            jimit.setup_source(world["jcomp"], jgen, params, src_img, src_smpl)
+        with pytest.raises(AttributeError, match="bg_net"):
+            timit.setup_source(world["tcomp"], tgen, t(world["src_img"]), t(world["src_smpl"]))
+        bg = np.random.RandomState(6).uniform(-1, 1, (1, S, S, 3)).astype(np.float32)
+    tgt = timit.prepare_target_smpls(world["tm"], world["tcache"], thetas(2, seed=5))
+
+    def jrun(p, si, ss, b, tg):
+        cache = jimit.setup_source(world["jcomp"], jgen, p, si, ss, bg_img=b)
+        return cache.bg_img, jimit.synthesize_frames(world["jcomp"], jgen, p, cache, tg)
+
+    jbg, (jp, jmask) = jax.jit(jrun)(params, src_img, src_smpl, None if bg is None else jnp.asarray(bg),
+                                     jnp.asarray(tgt))
+    tcache = timit.setup_source(world["tcomp"], tgen, t(world["src_img"]), t(world["src_smpl"]),
+                                bg_img=None if bg is None else t(bg))
+    tp, tmask = timit.synthesize_frames(world["tcomp"], tgen, tcache, t(tgt))
+    _close(tcache.bg_img, jbg)
+    _close(tp, jp)
+    _close(tmask, jmask)
+    assert n(tp).std() > 1e-3 and np.isfinite(n(tp)).all()

@@ -293,10 +293,90 @@ def test_full_width_forward_tsf_with_pretrained_weights(pretrained_flat):
     assert n(img).std() > 0.05
 
 
-@pytest.mark.parametrize("name", ["AttLWB-AdaIN", "AddLWB", "InputConcat", "TextureWarping"])
-def test_other_generators_name_a_later_slice(name):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tbuild(name, NARROW_CFG, device="cpu")
+OTHER_GENERATORS = ["AttLWB-AdaIN", "AddLWB", "InputConcat", "TextureWarping", "AttLWB-Front", "AvgLWB",
+                    "SoftGateAddLWB", "SoftGateAvgLWB"]
+
+
+def _jax_shapes(gen, S, ns, nt=1, temporal=False):
+    """{flat key: shape} of the Flax tree `gen.init` makes for ns sources."""
+    Ttt = jnp.zeros((1, max(nt - 1, 1), S, S, 2)) if temporal else None
+    tree = jax.eval_shape(
+        lambda r: gen.init(r, jnp.zeros((1, 1, S, S, 4)), jnp.zeros((1, ns, S, S, 6)), jnp.zeros((1, nt, S, S, 6)),
+                           jnp.zeros((1, nt, ns, S, S, 2)), Ttt, False), jax.random.PRNGKey(0))
+    return {k: tuple(v.shape) for k, v in _flatten_shapes(tree).items()}
+
+
+@pytest.mark.parametrize("name", OTHER_GENERATORS)
+def test_other_generators_match_jax(name):
+    """Every generator name besides AttLWB-SPADE against JAX at narrow widths
+    (32², nt = 2) with ns = 1 and 2, from the port's seeded flat weights
+    loaded strictly in both packages (their
+    keys and shapes are the Flax tree's): the LWB family's `forward_src` /
+    `forward_tsf` (T = 2) and training forward (`only_tsf=False`; temporal for
+    AdaIN), the baselines' training call. 1e-3, as the SPADE case."""
+    S, nt = 32, 2
+    temporal = name == "AttLWB-AdaIN"
+    baseline = name in ("InputConcat", "TextureWarping")
+    jgen = jbuild(name, NARROW_CFG, temporal=temporal)
+    for ns in (1, 2):
+        tgen = tbuild(name, NARROW_CFG, temporal=temporal, num_source=ns, device="cpu")
+        flat = tckpt.seeded_flat_params(tgen, seed=ns)
+        if ns == 2 or name == "InputConcat":  # only InputConcat's tree depends on ns
+            assert {k: v.shape for k, v in flat.items()} == _jax_shapes(jgen, S, ns, nt, temporal)
+        # non-zero biases, so that a dropped bias cannot go unnoticed
+        rng = np.random.RandomState(ns)
+        flat = {k: v + rng.randn(*v.shape).astype(np.float32) * 0.05 if k.endswith("bias") else v
+                for k, v in flat.items()}
+        tckpt.load_generator_params(tgen, flat)
+        params = unflatten_to_jax(flat)
+        d = _inputs(20 + ns, S=S, ns=ns, T=nt)
+        tsf_seq, Tst_seq = d["tsf"][None], d["Tst"][None]
+        Ttt = np.random.RandomState(ns).uniform(-1, 1, (1, nt - 1, S, S, 2)).astype(np.float32) \
+            if temporal else None
+        bg = None if name == "AttLWB-Front" else d["bg"]
+        call_args = (bg, d["src"], tsf_seq, Tst_seq, Ttt)
+        want = jgen.apply(params, *(None if a is None else jnp.asarray(a) for a in call_args), False)
+        with torch.no_grad():
+            got = tgen(*(None if a is None else t(a) for a in call_args), only_tsf=False)
+        assert len(got) == len(want) == (3 if baseline else 5)
+        for a, b in zip(got, want):
+            if b is None:
+                assert a is None
+                continue
+            np.testing.assert_allclose(n(a), np.asarray(b), atol=1e-3, rtol=0, err_msg=f"{name} ns={ns}")
+        if baseline:
+            assert not hasattr(tgen, "forward_tsf") and not hasattr(jgen, "forward_tsf")
+            continue
+        enc_r, res_r = jgen.apply(params, jnp.asarray(d["src"]), True, method=jgen.forward_src)
+        rep = lambda x: jnp.broadcast_to(x, (nt,) + x.shape[1:])
+        img_r, mask_r = jgen.apply(params, jnp.asarray(d["tsf"]), [rep(e) for e in enc_r],
+                                   [rep(r) for r in res_r], jnp.asarray(d["Tst"]), method=jgen.forward_tsf)
+        with torch.no_grad():
+            enc, res = tgen.forward_src(t(d["src"]))
+            exp = lambda x: x.expand((nt,) + tuple(x.shape[1:]))
+            img, mask = tgen.forward_tsf(t(d["tsf"]), [exp(e) for e in enc], [exp(r) for r in res], t(d["Tst"]))
+        for a, b in zip(list(enc) + list(res), list(enc_r) + list(res_r)):
+            np.testing.assert_allclose(n(a), np.asarray(b), atol=1e-4, rtol=0)
+        np.testing.assert_allclose(n(img), np.asarray(img_r), atol=1e-3, rtol=0, err_msg=f"{name} ns={ns}")
+        np.testing.assert_allclose(n(mask), np.asarray(mask_r), atol=1e-3, rtol=0, err_msg=f"{name} ns={ns}")
+        assert n(img).std() > 0.01
+
+
+def test_front_generator_has_no_background_net():
+    """AttLWB-Front: `forward_bg` raises AttributeError in both packages (the
+    background must be given), and its parameters are AttLWB-SPADE's without
+    `bg_net`."""
+    jgen = jbuild("AttLWB-Front", NARROW_CFG)
+    tgen = tbuild("AttLWB-Front", NARROW_CFG, device="cpu")
+    flat = tckpt.seeded_flat_params(tgen, 0)
+    spade = tckpt.seeded_flat_params(NARROW_CFG, 0)
+    assert set(flat) == {k for k in spade if not k.startswith("params/bg_net/")}
+    tckpt.load_generator_params(tgen, flat)
+    x = np.zeros((1, 1, 16, 16, 4), np.float32)
+    with pytest.raises(AttributeError, match="bg_net"):
+        jgen.apply(unflatten_to_jax(flat), jnp.asarray(x), method=jgen.forward_bg)
+    with pytest.raises(AttributeError, match="bg_net"):
+        tgen.forward_bg(t(x))
 
 
 def test_unknown_generator_raises_key_error():

@@ -3,8 +3,9 @@ JAX package's, and `personalize` end to end on a hand-built processed
 directory (64^2, smoke body, a narrow generator, ndf 8, two iterations): it
 writes `personalized.npz` in the JAX package's layout (which JAX's
 `load_params(like=...)` reads), skips when that file exists, honours
-`load_path_G`, passes over a checkpoint that does not fit, refuses a `.pth`,
-and the port's `imitate` then renders with the personalized weights."""
+`load_path_G`, passes over a checkpoint that does not fit, converts a
+reference `.pth`, and the port's `imitate` then renders with the personalized
+weights."""
 import os
 import shutil
 
@@ -30,7 +31,13 @@ from ipercore_tpu_torch.trainers import lwg_trainer as TT
 from ipercore_tpu_torch.utils import checkpoint as tckpt
 from ipercore_tpu_torch.utils import video as tvid
 
-from tests.test_torch_common import NARROW_CFG, thetas
+from tests.test_torch_common import (
+    NARROW_CFG,
+    flatten_flax,
+    reference_generator_state_dict,
+    thetas,
+    unflatten_to_jax,
+)
 
 S = 64
 
@@ -174,7 +181,8 @@ def test_load_path_G_is_honoured(tree):
 
 def test_pretrain_candidates_in_order(tree):
     """A checkpoint that does not fit the generator is passed over for the
-    next candidate; without one G starts from seed 0; a `.pth` raises."""
+    next candidate; without one G starts from seed 0; a reference `.pth`
+    converts as JAX's converter converts it."""
     root = tree()
     other = {"BGNet": {"num_filters": [8, 16, 16, 32], "n_res_block": 1},
              "SIDNet": {"num_filters": [8, 16, 32], "n_res_block": 1},
@@ -197,8 +205,40 @@ def test_pretrain_candidates_in_order(tree):
     flat = tckpt.load_flat_npz(tpers.personalize(opt, device="cpu"))
     seeded = tckpt.seeded_flat_params(NARROW_CFG, 0)
     assert all(np.array_equal(flat[k], seeded[k]) for k in seeded)
+    # a reference `.pth` (a state dict in the reference's layout, saved by
+    # torch) converts into the flat dict JAX's `convert_generator` gives
+    import torch
+
+    from ipercore_tpu.utils.torch_convert import convert_generator as jconvert
+
     pth = os.path.join(str(root), "g.pth")
-    open(pth, "wb").close()
+    sd = reference_generator_state_dict(seeded, seed=3)
+    torch.save({"state_dict": {k: torch.as_tensor(v) for k, v in sd.items()}}, pth)
     opt.load_path_G = pth
-    with pytest.raises(NotImplementedError, match="convert_generator"):
-        tpers.load_pretrained_generator(opt, gen)
+    got = tpers.load_pretrained_generator(opt, gen)
+    want, report = jconvert(sd, unflatten_to_jax(seeded))
+    assert report == []
+    want = flatten_flax(want)
+    assert got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want)
+    assert not np.array_equal(got["params/tsf_enc_0/kernel"], seeded["params/tsf_enc_0/kernel"])
+
+
+@pytest.mark.parametrize("gen_name", ["AttLWB-Front", "AttLWB-AdaIN", "AddLWB", "AvgLWB", "SoftGateAddLWB",
+                                      "SoftGateAvgLWB", "InputConcat", "TextureWarping"])
+def test_personalize_runs_every_generator(tree, gen_name):
+    """`opt.gen_name` selects any generator of the registry (one iteration):
+    the weights it writes have the keys and shapes of
+    `seeded_flat_params(G, 0)` (InputConcat's at the options' ns = 2; held
+    against JAX's Flax trees by `test_torch_networks.py::
+    test_other_generators_match_jax`) and moved from them by about one Adam
+    step. That step is held against JAX's for each fusion by
+    `test_torch_zoo_fusion_steps.py`, for AttLWB-Front and InputConcat by
+    `test_torch_zoo_trainers.py`."""
+    root = tree()
+    opt = _opt(topts, root, iters=1)
+    opt.gen_name = gen_name
+    flat = tckpt.load_flat_npz(tpers.personalize(opt, device="cpu"))
+    seeded = tckpt.seeded_flat_params(tbuild(gen_name, NARROW_CFG, num_source=2, device="meta"), 0)
+    assert {k: v.shape for k, v in flat.items()} == {k: v.shape for k, v in seeded.items()}
+    moved = max(float(np.abs(flat[k] - seeded[k]).max()) for k in flat)
+    assert 0 < moved <= 3e-4

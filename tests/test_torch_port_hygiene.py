@@ -53,7 +53,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "ipercore_tpu_torch.models.networks.criterions",
               "ipercore_tpu_torch.data.datasets", "ipercore_tpu_torch.data.prefetch",
               "ipercore_tpu_torch.parallel.mesh", "ipercore_tpu_torch.services.train",
-              "ipercore_tpu_torch.utils.logging", "ipercore_tpu_torch.utils.live_dashboard"):
+              "ipercore_tpu_torch.utils.logging", "ipercore_tpu_torch.utils.live_dashboard",
+              "ipercore_tpu_torch.utils.torch_convert", "ipercore_tpu_torch.services.evaluate",
+              "ipercore_tpu_torch.models.networks.inception"):
         assert m in names
     code = (
         "import importlib, sys\n"
@@ -114,6 +116,10 @@ ENTRY_POINTS = [
     ("ipercore_tpu_torch.models.networks.criterions", "init_face_params"),
     ("ipercore_tpu_torch.services.train", "train"),
     ("ipercore_tpu_torch.parallel.mesh", "init_data_parallel"),
+    ("ipercore_tpu_torch.services.evaluate", "evaluate_frames"),
+    ("ipercore_tpu_torch.services.evaluate", "PerceptualMetric"),
+    ("ipercore_tpu_torch.services.evaluate", "InceptionFID"),
+    ("ipercore_tpu_torch.services.evaluate", "LPIPSMetric"),
 ]
 
 
