@@ -21,6 +21,11 @@ Sphere20a losses, Adam; 512^2, 2 sources, 1 target) with K3 on its batches,
 and the train service (`services/train.train`: datasets, prefetch, eval,
 panels, checkpoints) in a 1-rank NCCL group for 8 iterations, then resumed
 for 2 more, with K3 on its batches and its eval against the plain versions.
+Then the other generators, trainers and evaluation (`zoo`, `evaluate`), and
+preprocessing part 1 (`preprocess_2d`: person detection with the segmenter
+and Body-25, the crop and 2D pose on a 48-frame 1080x1920 clip; each network
+on the card against the CPU, the native host routines against their plain
+versions), which runs none of the four kernels.
 Reads no weight file: every network is seeded.
 Every phase prints one JSON line; any failed check raises, so the exit code
 is non-zero. Needs one GPU; exits with code 2 when there is none.
@@ -265,6 +270,23 @@ def kernel_times(fn, reps: int = 1) -> list:
     raise RuntimeError("torch.profiler caught no device kernel in three traces")
 
 
+def kernel_times_and_wall(fn) -> tuple:
+    """`kernel_times(fn)` and the host-clock milliseconds of that same
+    profiled call, synchronised before and after: busy and wall time of one
+    run (the profiler's own host cost is inside the wall time)."""
+    walls = []
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    times = kernel_times(timed)
+    return times, walls[-1]
+
+
 def device_us_by_kernel(fn, reps: int = 5) -> dict:
     """Device microseconds per `fn()` call by kernel, after a warm-up call;
     the hand-written kernels by their short names."""
@@ -279,7 +301,9 @@ def device_us_by_kernel(fn, reps: int = 5) -> dict:
 
 
 def host_syncs(fn) -> int:
-    """Host syncs that one `fn()` makes, counted by torch's sync debug mode."""
+    """Host syncs that one `fn()` makes, counted by torch's sync debug mode.
+    The mode's one-time notice that it is a prototype ("Synchronization debug
+    mode is a prototype feature ...") is no sync and is not counted."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -288,7 +312,8 @@ def host_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message).lower() for w in caught)
+    messages = [str(w.message).lower() for w in caught]
+    return sum("synchroniz" in m and "prototype" not in m for m in messages)
 
 
 def check_no_host_sync(fn, what: str) -> None:
@@ -655,28 +680,32 @@ def close_fraction(a, b, tol: float = 1e-3) -> float:
     return float(((a.float().cpu() - b.float().cpu()).abs() <= tol).float().mean())
 
 
+def kernel_kind(key: str) -> str:
+    """The kind of a profiled device kernel, by its name."""
+    name = key.lower()
+    # the hand-written kernels: K1/K3's and K4's binning, walk and epilogue, K2
+    if HAND_WRITTEN.search(key):
+        return "kernels"
+    if any(w in name for w in ("conv", "cudnn", "gemm", "xmma", "cutlass", "winograd",
+                               "implicit", "nchwtonhwc", "nhwctonchw", "dgrad",
+                               "fft", "dse::", "pointwise_mult_and_sum_complex")) \
+            or ("gemv" in name and "float2" in name):
+        # cuDNN's f32 algorithms include FFT convolutions (DSE::*_fft*,
+        # pointwise_mult_and_sum_complex, complex (float2) gemv and gemm
+        # between the transforms) and dgrad engines for ConvTranspose
+        return "convolutions"
+    if any(w in name for w in ("sort", "radix", "scan", "searchsorted", "repeat_interleave")):
+        return "binning_sort_scan"
+    return "other"
+
+
 def device_breakdown(fn) -> dict:
     """Device milliseconds of one `fn()` by kind of kernel, from torch.profiler."""
     kinds = {"convolutions": 0.0, "kernels": 0.0, "binning_sort_scan": 0.0, "other": 0.0}
     by_name = []
     for us, key in kernel_times(fn):
         by_name.append((us / 1e3, key[:70]))
-        name = key.lower()
-        # the hand-written kernels: K1/K3's and K4's binning, walk and epilogue, K2
-        if HAND_WRITTEN.search(key):
-            kinds["kernels"] += us
-        elif any(w in name for w in ("conv", "cudnn", "gemm", "xmma", "cutlass", "winograd",
-                                     "implicit", "nchwtonhwc", "nhwctonchw", "dgrad",
-                                     "fft", "dse::", "pointwise_mult_and_sum_complex")) \
-                or ("gemv" in name and "float2" in name):
-            # cuDNN's f32 algorithms include FFT convolutions (DSE::*_fft*,
-            # pointwise_mult_and_sum_complex, complex (float2) gemv and gemm
-            # between the transforms) and dgrad engines for ConvTranspose
-            kinds["convolutions"] += us
-        elif any(w in name for w in ("sort", "radix", "scan", "searchsorted", "repeat_interleave")):
-            kinds["binning_sort_scan"] += us
-        else:
-            kinds["other"] += us
+        kinds[kernel_kind(key)] += us
     out = {k: v / 1e3 for k, v in kinds.items()}
     out["busy"] = sum(out.values())
     check(out["kernels"] > 0 and out["convolutions"] > 0,
@@ -1254,17 +1283,18 @@ def png_paeth(img: np.ndarray) -> bytes:
 
 
 def decode_times(root: str) -> dict:
-    """`read_png` of one 512² RGB image stored unfiltered (the port's writer)
-    and stored with Paeth rows; both must decode to the image."""
+    """`read_png` (native row filters) of one 512² RGB image stored with Sub
+    rows (the port's writer) and stored with Paeth rows; both must decode to
+    the image."""
     from ipercore_tpu_torch.utils import video as vid
 
     img = np.random.RandomState(9).randint(0, 256, (SIZE, SIZE, 3)).astype(np.uint8)
-    plain, paeth = os.path.join(root, "plain.png"), os.path.join(root, "paeth.png")
-    vid.write_png(plain, img)
+    sub, paeth = os.path.join(root, "sub.png"), os.path.join(root, "paeth.png")
+    vid.write_png(sub, img)
     with open(paeth, "wb") as f:
         f.write(png_paeth(img))
     out = {}
-    for name, path in (("unfiltered", plain), ("paeth", paeth)):
+    for name, path in (("sub", sub), ("paeth", paeth)):
         t0 = time.perf_counter()
         got = vid.read_png(path)
         out[name] = (time.perf_counter() - t0) * 1e3
@@ -1913,6 +1943,339 @@ def evaluate_phase(ctx, device) -> dict:
             "bf16_chunk_vs_f32": dict(quality, chunk=CHUNK, bf16_chunk_ms=bf16_ms, f32_chunk_ms=ctx["chunk_ms"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: preprocessing part 1 (detection, tracking, the crop, 2D pose)
+# ---------------------------------------------------------------------------
+
+CLIP_FRAMES, CLIP_H, CLIP_W = 48, 1080, 1920  # detection's max_frames, a phone / camera clip
+POSE_SIZE, SEG_WORK, MOBILENET_SIZE, CROP_SIZE = 368, 256, 256, 512
+POSE_TRAINED_SIZE = 320  # the `__meta__/input_size` the repository's trained Body-25 weights carry
+
+
+def person_clip(device, seed: int = 12) -> np.ndarray:
+    """(48, 1080, 1920, 3) frames in [-1, 1], made on the card from a seed: a
+    static textured background, one person-shaped blob (head, torso, arms,
+    legs, with its own texture) walking right, and camera noise."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    yy = torch.arange(CLIP_H, device=device, dtype=torch.float32)[:, None]
+    xx = torch.arange(CLIP_W, device=device, dtype=torch.float32)[None, :]
+    tint = torch.tensor([0.5, 0.3, 0.2], device=device)
+    bg = (0.4 * torch.sin(xx / 37.0) * torch.cos(yy / 53.0))[..., None] * tint \
+        + 0.2 * (torch.rand(CLIP_H, CLIP_W, 3, generator=g, device=device) * 2 - 1) - 0.2
+    tex = torch.stack([0.3 + 0.2 * torch.sin(yy / 9.0).expand(CLIP_H, CLIP_W),
+                       -0.5 + 0.1 * torch.cos(xx / 11.0).expand(CLIP_H, CLIP_W),
+                       torch.full((CLIP_H, CLIP_W), 0.6, device=device)], -1)
+    s, cy = 0.78 * CLIP_H, 0.52 * CLIP_H
+    frames = torch.empty(CLIP_FRAMES, CLIP_H, CLIP_W, 3, device=device)
+    for i in range(CLIP_FRAMES):
+        cx = 0.35 * CLIP_W + 0.3 * CLIP_W * i / (CLIP_FRAMES - 1)
+        m = (xx - cx) ** 2 + (yy - (cy - 0.42 * s)) ** 2 < (0.08 * s) ** 2
+        m = m | (((xx - cx).abs() < 0.13 * s) & (yy > cy - 0.33 * s) & (yy < cy + 0.05 * s))
+        for side in (-1, 1):
+            m = m | (((xx - cx - side * 0.06 * s).abs() < 0.05 * s) & (yy >= cy + 0.05 * s) & (yy < cy + 0.5 * s))
+            m = m | (((xx - cx - side * 0.18 * s).abs() < 0.04 * s) & (yy > cy - 0.3 * s) & (yy < cy + 0.02 * s))
+        noise = 0.02 * torch.randn(CLIP_H, CLIP_W, 3, generator=g, device=device)
+        frames[i] = torch.where(m[..., None], tex, bg) + noise
+    return frames.clamp_(-1, 1).cpu().numpy()
+
+
+def conv_flops_body25(size: int) -> float:
+    """Multiply-adds x 2 of Body-25's convolutions on one size² frame."""
+    from ipercore_tpu_torch.tools.pose2d import OpenPoseBody25
+
+    total, h = 0.0, float(size)
+    net = OpenPoseBody25()
+    for name, m in net.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            # the stem's three pools: conv1_* at size, conv2_* at /2, conv3_* at /4, the rest at /8
+            scale = 1 if ".conv1_" in name else 2 if ".conv2_" in name else 4 if ".conv3_" in name else 8
+            k = m.kernel_size[0] * m.kernel_size[1]
+            total += 2.0 * (h / scale) ** 2 * k * m.in_channels * m.out_channels
+    return total
+
+
+def agreement(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    """`got` (card) against `want` (CPU): the share within 1e-3 (>= 99.5 %
+    required) and the largest error relative to the largest value (<= 1e-3
+    required: seeded nets give small outputs, where 1e-3 alone says little)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    out = {"close_fraction": close_fraction(got, want), "max_abs_err": float((got - want).abs().max()),
+           "max_abs": float(want.abs().max())}
+    out["max_rel_err"] = out["max_abs_err"] / max(out["max_abs"], 1e-30)
+    check(out["close_fraction"] >= 0.995 and out["max_rel_err"] <= 1e-3,
+          f"preprocess_2d: {what} on the card against the CPU: {out}")
+    return out
+
+
+def person_masks(frames: np.ndarray) -> np.ndarray:
+    """The drawn person of `person_clip`'s frames: its texture alone has a
+    blue channel above 0.4 (the background's stays under 0.1, noise
+    included)."""
+    return frames[..., 2] > 0.4
+
+
+def calibrated_seg_params(seg_flat: dict, frames: np.ndarray, work: int) -> tuple:
+    """The seeded segmenter with its last 1x1 convolution rescaled on the
+    first frame, so that its logits are -4 at the background's mean and +4 at
+    the drawn person's: the seeded net separates the two textures (its
+    logits differ by about 11 standard deviations of the background's) but
+    at near-zero logits, which no component passes detection's gate with.
+    Returns (params, {mean logits and the share of grid pixels classified
+    right on that frame})."""
+    from ipercore_tpu_torch.tools import detection as D
+    from ipercore_tpu_torch.tools.mattors import HumanMattor
+
+    small = D._resize(frames[:1], work)
+    logit = HumanMattor(seg_params=seg_flat, device="cpu").segment(small)[0, ..., 0].numpy()
+    person = person_masks(small)[0]
+    lo, hi = float(logit[~person].mean()), float(logit[person].mean())
+    a, mid = 8.0 / (hi - lo), 0.5 * (lo + hi)
+    cal = dict(seg_flat)
+    cal["params/Conv_2/kernel"] = seg_flat["params/Conv_2/kernel"] * a
+    cal["params/Conv_2/bias"] = (seg_flat["params/Conv_2/bias"] - mid) * a
+    right = float(((a * (logit - mid) > 0) == person).mean())
+    return cal, {"background_logit": lo, "person_logit": hi, "scale": a, "pixels_right": right}
+
+
+def planted_heatmaps(n: int, h: int, w: int, seed: int = 13) -> torch.Tensor:
+    """(n, h, w, 26) Body-25 heatmaps with one Gaussian peak (sigma 1.5 px,
+    height 0.5-1) per joint over noise under 1e-3, on the host: joints 0-4
+    peak on the four edges and a corner, and joints 5-7 hold two equal peaks
+    each (a tie the decode must break towards the first in row-major order).
+    Returns the maps and the (n, 25, 2) planted (x, y) of the peak the decode
+    should pick."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    maps = rng.uniform(0, 1e-3, (n, h, w, 26)).astype(np.float32)
+    want = np.zeros((n, 25, 2), np.float32)
+    edges = [(0, None), (w - 1, None), (None, 0), (None, h - 1), (0, 0)]
+    for i in range(n):
+        for j in range(25):
+            x, y = rng.randint(2, w - 2), rng.randint(2, h - 2)
+            if j < len(edges):
+                ex, ey = edges[j]
+                x, y = ex if ex is not None else x, ey if ey is not None else y
+            peaks = [(x, y)]
+            if 5 <= j < 8:  # a tie: a second, identical peak on another row
+                peaks.append((rng.randint(2, w - 2), (y + rng.randint(6, 12)) % (h - 4) + 2))
+            amp = rng.uniform(0.5, 1.0)
+            for px, py in peaks:
+                maps[i, ..., j] = np.maximum(
+                    maps[i, ..., j], amp * np.exp(-((xx - px) ** 2 + (yy - py) ** 2) / (2 * 1.5 ** 2)))
+            want[i, j] = min(peaks, key=lambda p: (p[1], p[0]))
+    return torch.from_numpy(maps), want
+
+
+def preprocess_phase(device) -> dict:
+    """Preprocessing part 1 as `Preprocessor.execute` runs it (stage 1.1-1.2
+    and the 2D half of 1.3) on a 48-frame 1080x1920 clip: `detect_person_boxes`
+    with the segmenter and Body-25 (seeded weights given as parameters, so
+    both count as trained and detection runs them; the segmenter's last layer
+    rescaled so that the drawn person passes detection's gate and the
+    segmentation branch is taken), the union box, the 48
+    crops to 512², `run_tracked_robust` on them at the runner's trained size
+    (320), the left/right swap filter and the cocoplus-19 mapping. Then each
+    network on the card against itself on the CPU, the native routines
+    against their plain versions, and the times."""
+    from ipercore_tpu_torch.ops.sampling import resize_image
+    from ipercore_tpu_torch.tools import detection as D
+    from ipercore_tpu_torch.tools.mattors import PERSON_SEG_SEED, HumanMattor, PersonSegUNet
+    from ipercore_tpu_torch.tools.pose2d import (OPENPOSE_SEED, OpenPoseBody25, OpenPoseRunner,
+                                                 body25_to_cocoplus, decode_single_person)
+    from ipercore_tpu_torch.tools.pose2d_mobilenet import (MOBILENET_SEED, MobilenetOpenPose,
+                                                           MobilenetOpenPoseRunner)
+    from ipercore_tpu_torch.tools.preprocessor import fmt_active_boxes, process_crop_img, update_active_boxes
+    from ipercore_tpu_torch.tools.trackers import box_iou
+    from ipercore_tpu_torch.utils import native
+    from ipercore_tpu_torch.utils import video as vid
+    from ipercore_tpu_torch.utils.checkpoint import seeded_flat_params
+    from ipercore_tpu_torch.utils.smoothing import pose2d_temporal_filter
+
+    t0 = time.perf_counter()
+    frames = person_clip(device)
+    clip_s = time.perf_counter() - t0
+    pose_flat = seeded_flat_params(OpenPoseBody25(), OPENPOSE_SEED)
+    seg_flat = seeded_flat_params(PersonSegUNet(), PERSON_SEG_SEED)
+    mob_flat = seeded_flat_params(MobilenetOpenPose(), MOBILENET_SEED)
+    seg_flat, out_cal = calibrated_seg_params(seg_flat, frames, SEG_WORK)
+    runner = OpenPoseRunner(params=pose_flat, device=device)
+    runner.trained_size = POSE_TRAINED_SIZE
+    mattor = HumanMattor(seg_params=seg_flat, device=device)
+    seg = D.SegmentationDetector(mattor=mattor, work=SEG_WORK, device=device)
+    mobilenet = MobilenetOpenPoseRunner(params=mob_flat, device=device)
+    out = {"clip": [CLIP_FRAMES, CLIP_H, CLIP_W], "clip_make_s": clip_s, "segmenter_calibration": out_cal}
+
+    # --- the main path, launch counts set to 0 just before it ---------------
+    zero_counts()
+    t0 = time.perf_counter()
+    boxes, method = D.detect_person_boxes(frames, seg_detector=seg, pose2d=runner, device=device)
+    torch.cuda.synchronize()
+    out["detect_s"], out["method"] = time.perf_counter() - t0, method
+    H, W = frames.shape[1:3]
+    # the calibrated segmenter finds the drawn person: its acceptance path
+    # (components, the pose-seed filter, the gate, zoom refinement) runs
+    check(method == "person_seg" and boxes is not None, f"preprocess_2d: detection took {method!r}")
+    check(boxes.shape == (CLIP_FRAMES, 4) and np.isfinite(boxes).all()
+          and (boxes[:, :2] >= 0).all() and (boxes[:, 2] <= W).all() and (boxes[:, 3] <= H).all()
+          and (boxes[:, 2:] > boxes[:, :2]).all(), f"preprocess_2d: boxes {boxes[:2]} ({method})")
+    ious = []
+    for b, m in zip(boxes, person_masks(frames)):
+        ys, xs = np.nonzero(m)
+        drawn = np.asarray([[xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]], np.float32)
+        ious.append(float(box_iou(b, drawn)[0]))
+    out["box_iou_with_drawn_person"] = {"min": min(ious), "mean": float(np.mean(ious))}
+    check(min(ious) >= 0.4, f"preprocess_2d: person boxes miss the drawn person (IoU {min(ious)})")
+    active = None
+    for b in boxes:
+        active = update_active_boxes(b, active)
+    box = fmt_active_boxes(active, (H, W), factor=1.25)
+    check(np.isfinite(box).all() and box[0] >= 0 and box[1] >= 0 and box[2] <= W and box[3] <= H,
+          f"preprocess_2d: crop box {box}")
+    t0 = time.perf_counter()
+    crops = np.stack([process_crop_img(f, box, CROP_SIZE, device=device)[0] for f in frames])
+    out["crop_s"] = time.perf_counter() - t0
+    check(crops.shape == (CLIP_FRAMES, CROP_SIZE, CROP_SIZE, 3) and np.isfinite(crops).all(),
+          "preprocess_2d: crops")
+    pose_in = resize_image(torch.as_tensor(crops, device=device), POSE_TRAINED_SIZE,
+                           POSE_TRAINED_SIZE).cpu().numpy()
+    t0 = time.perf_counter()
+    kps, scores, valid = runner.run_tracked_robust(pose_in)
+    torch.cuda.synchronize()
+    out["robust_s"] = time.perf_counter() - t0
+    stacked = pose2d_temporal_filter(np.concatenate([kps, (scores * valid)[..., None]], axis=-1), window_size=5)
+    kps19, conf19 = body25_to_cocoplus(stacked[..., :2], stacked[..., 2])
+    check(kps19.shape == (CLIP_FRAMES, 19, 2) and np.isfinite(kps19).all() and np.isfinite(conf19).all()
+          and (np.abs(kps19) <= 1.5).all(), "preprocess_2d: keypoints")
+    out["launches"] = read_counts()
+    out["box"] = [float(v) for v in box]
+    # detection's parts, each again alone: the host pooling of the clip to the
+    # segmenter's grid, the segmenter, the pose seeds, the background model
+    split = {}
+    for name, fn in (("pool_to_seg_grid", lambda: D._resize(frames, SEG_WORK)),
+                     ("segmenter_probs", lambda: seg.run_probs(frames)),
+                     ("pose_seeds", lambda: D.pose_person_boxes(frames, pose2d=runner, device=device)),
+                     ("median_bg", lambda: D.track_person_boxes(frames))):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        split[name] = time.perf_counter() - t0
+        if name == "median_bg":
+            out["median_bg_found"] = got is not None
+    out["detect_split_s"] = split
+    out["median_bg_s"] = split["median_bg"]
+    out["confident_joints_per_frame"] = float((conf19 > 0.3).sum(1).mean())
+
+    # --- Body-25 on the clip at 368² -----------------------------------------
+    x368 = resize_image(torch.as_tensor(frames, device=device), POSE_SIZE, POSE_SIZE)
+    forward = lambda: runner._forward(x368)
+    ms = cuda_ms(forward, reps=2, warmup=1)
+    n_chunks = -(-CLIP_FRAMES // 32)
+    torch.cuda.reset_peak_memory_stats()
+    _, wall = once_ms(forward)  # host clock around one forward, synchronised
+    times, profiled_wall = kernel_times_and_wall(forward)
+    by_kind = {"convolutions": 0.0, "other": 0.0}
+    for us, key in times:
+        by_kind["convolutions" if kernel_kind(key) == "convolutions" else "other"] += us / 1e3
+    busy = sum(by_kind.values())
+    flops = 2 * CLIP_FRAMES * conv_flops_body25(POSE_SIZE)  # the flip doubles the batch
+    out["openpose"] = {
+        "forward_ms": ms, "frames_per_s": CLIP_FRAMES / (ms / 1e3), "chunk": 32,
+        # busy and wall of one profiled forward; `wall_ms` is one forward without the profiler
+        "device_ms": dict(by_kind, busy=busy), "profiled_wall_ms": profiled_wall,
+        "device_idle_share": 1 - busy / profiled_wall, "wall_ms": wall,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "host_syncs_per_chunk": host_syncs(forward) / n_chunks,
+        "conv_gflop_per_frame_with_tta": flops / CLIP_FRAMES / 1e9,
+        "conv_tflop_per_s": flops / (ms / 1e3) / 1e12,
+        "top": [{"ms": us / 1e3, "kernel": k[:70]} for us, k in sorted(times, reverse=True)[:5]]}
+    out["openpose_frames_per_s"] = out["openpose"]["frames_per_s"]
+    _, tracked_wall = once_ms(lambda: runner.run_tracked(x368, smooth=True))
+    # two runs, unclipped: a negative reading would show that the forward's
+    # wall time varies by more than the decode costs
+    out["run_tracked_wall_ms"] = tracked_wall
+    out["decode_ms_per_frame"] = (tracked_wall - wall) / CLIP_FRAMES
+
+    # --- the networks on the card against the CPU, on 2 frames ---------------
+    two = x368[:2]
+    paf_k, hm_k = runner._forward(two)
+    cpu_runner = OpenPoseRunner(params=pose_flat, device="cpu")
+    paf_c, hm_c = cpu_runner._forward(two.cpu())
+    checks = {"openpose_pafs": agreement(paf_k, paf_c, "Body-25 PAFs"),
+              "openpose_heatmaps": agreement(hm_k, hm_c, "Body-25 heatmaps")}
+    dec_k = decode_single_person(hm_k)
+    dec_c = decode_single_person(hm_k.cpu())
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(dec_k, dec_c)),
+          "preprocess_2d: decode_single_person on the card differs from the CPU's")
+    # the seeded net's maps are near flat: the decode again on planted peaks
+    # (edges, a corner, ties) at Body-25's 46² output grid
+    planted, want_px = planted_heatmaps(4, POSE_SIZE // 8, POSE_SIZE // 8)
+    dec_k = decode_single_person(planted.to(device))
+    dec_c = decode_single_person(planted)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(dec_k, dec_c)),
+          "preprocess_2d: decode_single_person on planted peaks differs between the card and the CPU")
+    hw = np.asarray([planted.shape[2], planted.shape[1]], np.float32)
+    px = (dec_c[0].numpy() * hw + hw - 1) / 2  # NDC -> pixel, sub-pixel offset included
+    err = np.abs(px - want_px)
+    checks["planted_decode"] = {"max_px_err_edges": float(err[:, :5].max()),
+                                "max_px_err_interior_and_ties": float(err[:, 5:].max()),
+                                "valid": int(dec_c[2].sum()), "joints": int(dec_c[2].numel())}
+    check(err.max() <= 1.0 and err[:, 5:].max() < 0.05 and bool(dec_c[2].all()),
+          f"preprocess_2d: the decode misses planted peaks: {checks['planted_decode']}")
+    small = D._resize(frames[:2], SEG_WORK)
+    cpu_mattor = HumanMattor(seg_params=seg_flat, device="cpu")
+    checks["segmenter_probs"] = agreement(torch.sigmoid(mattor.segment(small)),
+                                          torch.sigmoid(cpu_mattor.segment(small)), "segmenter probabilities")
+    x256 = resize_image(torch.as_tensor(frames, device=device), MOBILENET_SIZE, MOBILENET_SIZE)
+    cpu_mob = MobilenetOpenPoseRunner(params=mob_flat, device="cpu")
+    hk, pk = mobilenet._apply(x256[:2])
+    hc, pc = cpu_mob._apply(x256[:2].cpu())
+    checks["mobilenet_heatmaps"] = agreement(hk, hc, "Mobilenet heatmaps")
+    checks["mobilenet_pafs"] = agreement(pk, pc, "Mobilenet PAFs")
+    out["checks"] = checks
+    mob_ms = cuda_ms(lambda: mobilenet._apply(x256), reps=3, warmup=1)
+    out["mobilenet_frames_per_s"] = CLIP_FRAMES / (mob_ms / 1e3)
+    out["mobilenet_ms"] = mob_ms
+    seg_small = D._resize(frames, SEG_WORK)
+    seg_ms = cuda_ms(lambda: seg.run_probs_pre(seg_small), reps=2, warmup=1)
+    out["segmenter_ms_48_frames"] = seg_ms
+
+    # --- the native routines against their plain versions --------------------
+    grid = D._resize(frames, D.WORK)
+    fg = D.foreground_masks(grid, D.median_background(grid))
+    masks = [D._clean(m) for m in fg]
+    t0 = time.perf_counter()
+    nat = [D.connected_component_boxes(m, min_area=1) for m in masks]
+    nat_us = (time.perf_counter() - t0) / len(masks) * 1e6
+    t0 = time.perf_counter()
+    plain = [D._cc_boxes_plain(m, min_area=1) for m in masks]
+    plain_us = (time.perf_counter() - t0) / len(masks) * 1e6
+    for m, b in zip(masks, plain):  # every component, uncapped, against the BFS
+        full = native.cc_boxes(m, max_comps=m.size)[:, :4]
+        check(sorted(map(tuple, full.tolist())) == sorted(map(tuple, b.astype(np.int32).tolist())),
+              "preprocess_2d: native component boxes differ from the BFS")
+    out["cc_boxes_us"] = {"native": nat_us, "python_bfs": plain_us, "masks": len(masks),
+                          "grid": D.WORK, "components_per_mask": float(np.mean([len(b) for b in plain]))}
+    img = np.random.RandomState(9).randint(0, 256, (SIZE, SIZE, 3)).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as root:
+        paeth, sub = os.path.join(root, "paeth.png"), os.path.join(root, "sub.png")
+        with open(paeth, "wb") as f:
+            f.write(png_paeth(img))
+        t0 = time.perf_counter()
+        got = vid.read_png(paeth)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        raw, h, w, nch = vid.png_rows(paeth)
+        t0 = time.perf_counter()
+        rows = vid.unfilter_rows_plain(raw, h, w * nch, nch)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(got, img) and np.array_equal(rows, img.reshape(h, -1)),
+              "preprocess_2d: the native PNG decode differs from the plain loop")
+        vid.write_png(sub, img)
+        check(vid.png_rows(sub)[0] == vid.filter_sub_plain(img.reshape(SIZE, -1), 3),
+              "preprocess_2d: native write_png rows differ from Sub filtering in Python")
+    out["png_decode_ms"] = {"native": native_ms, "python_loop": plain_ms, "size": SIZE, "filter": "paeth"}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["kernels"], default=None,
@@ -1938,7 +2301,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cuda_build.build_all()
-    emit("build", seconds=time.perf_counter() - t0, sources=list(cuda_build.SOURCES))
+    emit("build", seconds=time.perf_counter() - t0, sources=list(cuda_build.SOURCES + cuda_build.HOST_SOURCES))
 
     model = smpl_mod.template_model(device=device)
     assets = load_assets(model, device=device)
@@ -1966,6 +2329,8 @@ def main() -> int:
     emit("train_service", **service_train)
     zoo = zoo_phase(device)
     emit("zoo", **zoo)
+    pre = preprocess_phase(device)
+    emit("preprocess_2d", **pre)
 
     # launches: K1-K3 on the main path's run, K4 on the table route's
     launches = dict(result["launches"], raster_flows_table=table["launches"]["raster_flows_table"])
@@ -1982,6 +2347,8 @@ def main() -> int:
         t: v["k3_launches_per_step"] for t, v in zoo["trainers"].items()}
     kernels["raster_fim"]["launches_per_zoo_eval_step"] = {
         t: v["k3_launches_per_eval"] for t, v in zoo["trainers"].items()}
+    for name in kernels:  # preprocessing part 1 runs none of the four
+        kernels[name]["launches_preprocess_2d"] = pre["launches"][name]
     line = {"kernels": [
         {"name": name, "replaces": REPLACES[name], "launches": launches[name],
          "ms": v["wrapper_ms"], **v}  # `ms`: the whole call, as a user of the wrapper pays it

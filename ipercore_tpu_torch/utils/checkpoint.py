@@ -11,7 +11,9 @@ the Flax module names, so the carrier is mechanical:
   * Flax `ConvTranspose(4x4, stride 2, "SAME")` kernel (kH, kW, I, O) ->
     flipped spatially, (I, O, kH, kW), run as
     `conv_transpose2d(stride=2, padding=1)`;
-  * Dense kernel (I, O) -> Linear weight (O, I).
+  * Dense kernel (I, O) -> Linear weight (O, I);
+  * `__meta__/...` entries (a trainer's stamp, e.g. `openpose.npz`'s
+    `__meta__/input_size`) are no parameters and are skipped.
 
 `torch_params_to_flax` is its inverse, so a checkpoint the port writes is one
 the JAX package reads, and the reverse. `seeded_flat_params` makes a full set
@@ -38,6 +40,10 @@ import torch.nn as nn
 # looks for them too
 WEIGHTS_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "assets")
+
+
+# keys of a weight file that carry metadata, not parameters
+META_PREFIX = "__meta__/"
 
 
 def load_flat_npz(path: str) -> dict[str, np.ndarray]:
@@ -76,6 +82,8 @@ def flax_params_to_torch(flat: dict[str, np.ndarray], like: dict | None = None) 
     """
     out: dict[str, torch.Tensor] = {}
     for fk, arr in flat.items():
+        if fk.startswith(META_PREFIX):  # a trainer's stamp (`__meta__/input_size`), no parameter
+            continue
         tk, is_kernel = _torch_key(fk)
         a = np.asarray(arr)
         if is_kernel and a.ndim == 4:

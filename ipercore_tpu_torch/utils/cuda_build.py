@@ -1,13 +1,16 @@
-"""Build-at-first-use for the CUDA sources under `ipercore_tpu_torch/csrc/`.
+"""Build-at-first-use for the sources under `ipercore_tpu_torch/csrc/`.
 
 Each `<name>.cu` exposes a plain C interface and is compiled by `nvcc` into
 `ipercore_tpu_torch/_build/lib<name>-<hash>.so`, then loaded with `ctypes`.
-Nothing is built when a module is imported: `load_library` is called by a
-kernel wrapper the first time it launches. `build_all` compiles every source
-in parallel (one `nvcc` process each), which is what a start-up script wants.
+Each `<name>.cpp` (host code: `HOST_SOURCES`) is compiled the same way by the
+host C++ compiler (`$CXX`, else `c++` or `g++` on PATH). Nothing is built when
+a module is imported: `load_library` is called by a wrapper the first time it
+runs. `build_all` compiles every source in parallel (one compiler process
+each), which is what a start-up script wants.
 
-The build needs `nvcc` (on PATH, under `$CUDA_HOME`, or `/usr/local/cuda`) and
-targets `sm_90a`; there is no fallback when it is missing — the error says so.
+The CUDA build needs `nvcc` (on PATH, under `$CUDA_HOME`, or `/usr/local/cuda`)
+and targets `sm_90a`; there is no fallback when a compiler is missing or fails
+— the error says so, with the compiler's log.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "--shared", "-Xcompiler", "-fPIC")
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 SOURCES = ("raster_bin", "raster", "raster_table_bin", "raster_table", "grid_sample")
+HOST_SOURCES = ("cclabel", "pngfilters")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -43,6 +48,18 @@ def find_nvcc() -> str:
         "ipercore_tpu_torch can only be built on a machine with the CUDA toolkit")
 
 
+def find_cxx() -> str:
+    """Path of the host C++ compiler (`$CXX`, else `c++` or `g++` on PATH);
+    raises FileNotFoundError when there is none."""
+    for c in (os.environ.get("CXX"), "c++", "g++"):
+        path = c and (c if os.path.isabs(c) else shutil.which(c))
+        if path and os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise FileNotFoundError(
+        "no host C++ compiler ($CXX, c++, g++): the native routines of "
+        "ipercore_tpu_torch cannot be built")
+
+
 def _included(path: str, seen: list[str]) -> list[str]:
     """`path` and every file under `csrc/` that it includes with quotes,
     directly or through another such file, each once."""
@@ -56,11 +73,18 @@ def _included(path: str, seen: list[str]) -> list[str]:
     return seen
 
 
+def _source(name: str) -> tuple[str, tuple[str, ...]]:
+    """The source file of `name` and its compiler's flags."""
+    if name in HOST_SOURCES:
+        return os.path.join(CSRC_DIR, f"{name}.cpp"), CXX_FLAGS
+    return os.path.join(CSRC_DIR, f"{name}.cu"), NVCC_FLAGS
+
+
 def _paths(name: str) -> tuple[str, str]:
     """The source and its library, named by a hash of the source, every
     header it includes from `csrc/` and the flags: an edited header rebuilds."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    src, flags = _source(name)
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in _included(src, []):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
@@ -68,13 +92,15 @@ def _paths(name: str) -> tuple[str, str]:
 
 
 def _start_build(name: str) -> tuple[subprocess.Popen, str, str] | None:
-    """Start nvcc for one source unless its library is already built."""
+    """Start the compiler for one source unless its library is already built."""
     src, lib = _paths(name)
     if os.path.exists(lib):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+    flags = _source(name)[1]
+    compiler = find_cxx() if name in HOST_SOURCES else find_nvcc()
+    proc = subprocess.Popen([compiler, *flags, "-o", tmp, src],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib
 
@@ -87,13 +113,15 @@ def _finish_build(name: str, started: tuple[subprocess.Popen, str, str] | None) 
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{log}")
+        src = os.path.basename(_source(name)[0])
+        raise RuntimeError(f"{os.path.basename(proc.args[0])} failed on csrc/{src} "
+                           f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, lib)
 
 
 def build_all() -> None:
-    """Compile every source, all `nvcc` processes started together."""
-    started = [(n, _start_build(n)) for n in SOURCES]
+    """Compile every source, all compiler processes started together."""
+    started = [(n, _start_build(n)) for n in SOURCES + HOST_SOURCES]
     errors = []
     for n, s in started:  # wait for every compiler before reporting a failure
         try:
@@ -105,7 +133,7 @@ def build_all() -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` if needed and return its loaded library."""
+    """Build `csrc/<name>.cu` (or `.cpp`) if needed and return its loaded library."""
     lib = _loaded.get(name)
     if lib is None:
         _finish_build(name, _start_build(name))

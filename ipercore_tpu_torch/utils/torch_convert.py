@@ -3,8 +3,9 @@
 The port's copy of `ipercore_tpu/utils/torch_convert.py` for the networks the
 port has: the generator (`convert_generator`, the reference's
 `AttLWB-SPADE_id_G_*.pth` layout), the discriminators, the VGG19 / VGG16 /
-VGG11 perceptual nets, Sphere20a and SENet-50 face nets, InceptionV3 (FID)
-and LPIPS(lin). Each takes a state dict (torch tensors or numpy arrays,
+VGG11 perceptual nets, Sphere20a and SENet-50 face nets, InceptionV3 (FID),
+LPIPS(lin), and the 2D pose nets OpenPose Body-25 (`convert_openpose`) and
+Mobilenet OpenPose (`convert_mobilenet_openpose`). Each takes a state dict (torch tensors or numpy arrays,
 `module.` prefixes allowed) and `like`, the flat parameters to fill
 (`{flax key: array}`, e.g. `seeded_flat_params(net)`, or a network of the
 port, whose own parameters are then the starting values). It returns
@@ -449,4 +450,99 @@ def convert_lpips(sd: Mapping, like: Like) -> tuple[dict[str, np.ndarray], list[
             got = np.asarray(got).reshape(-1)
             if got.shape != (3,) or not np.allclose(got, w, atol=1e-3):
                 report.append(f"SCALING MISMATCH {name}: {got.tolist()}")
+    return _finish(tree, params), report
+
+
+# ---------------------------------------------------------------------------
+# 2D pose (preprocessing)
+# ---------------------------------------------------------------------------
+
+def convert_openpose(sd: Mapping, like: Like) -> tuple[dict[str, np.ndarray], list[str]]:
+    """OpenPose Body-25 torch checkpoint -> `tools/pose2d.OpenPoseBody25`.
+
+    Torch layout (`openposenet.py:60-330`): 'model0.conv1_1.weight', and
+    'block{s}{l}.main.{i}.split{col}.Mconv{i+1}_stage{s}_L{l}[_{col}].weight'
+    (+ matching Mprelu PReLU weights). The flax tree flattens each block's
+    MConv layers under the block name; the M-names are globally unique within
+    a block, so mapping is by (first component, last-two components).
+    """
+    sd = _normalize_sd(sd)
+    tree, params = _mutable_like(like)
+    report: list[str] = []
+    for key, val in sd.items():
+        parts = key.split(".")
+        block, mname, param = parts[0], parts[-2], parts[-1]
+        if block == "model0":
+            path = ["model0", mname]
+        elif block.startswith("block"):
+            path = [block, mname]
+        else:
+            report.append("UNMAPPED " + key)
+            continue
+        if param == "weight" and val.ndim == 4:  # conv kernel
+            _assign(params, path + ["kernel"], torch_conv_to_flax(val), report)
+        elif param == "weight" and val.ndim == 1 and mname.startswith(("prelu", "Mprelu")):
+            _assign(params, path + ["weight"], val, report)
+        elif param == "bias":
+            _assign(params, path + ["bias"], val, report)
+        else:
+            report.append("UNMAPPED " + key)
+    return _finish(tree, params), report
+
+
+def convert_mobilenet_openpose(sd: Mapping, like: Like) -> tuple[dict[str, np.ndarray], list[str]]:
+    """Lightweight Mobilenet OpenPose checkpoint -> `tools/pose2d_mobilenet.
+    MobilenetOpenPose` params.
+
+    Torch layout (`mobilenet.py:122-158`, Osokin's checkpoint): sequential
+    `model.{i}.{j}` trunk (conv/bn indices inside each block), `cpm.align.0`,
+    `cpm.trunk.{i}.{0,2}`, `cpm.conv.0`, `initial_stage.{trunk.{i}.0,
+    heatmaps.{0,1}.0, pafs.{0,1}.0}`, `refinement_stages.{r}.trunk.{b}.
+    {initial.0, trunk.{0,1}.0}` + heads.
+    """
+    sd = _normalize_sd(sd)
+    tree, params = _mutable_like(like)
+    report: list[str] = []
+
+    # stem: model.0.{0 conv, 1 bn}
+    _put_conv(sd, params, "model.0.0", ["model0_conv"], report)
+    _put_bn(sd, params, "model.0.1", ["model0_bn"], report)
+    # depthwise blocks: model.{i}.{0 dw, 1 bn, 3 pw, 4 bn}
+    for i in range(1, 12):
+        f = [f"model{i}"]
+        _put_conv(sd, params, f"model.{i}.0", f + ["dw"], report)
+        _put_bn(sd, params, f"model.{i}.1", f + ["dwbn"], report)
+        _put_conv(sd, params, f"model.{i}.3", f + ["pw"], report)
+        _put_bn(sd, params, f"model.{i}.4", f + ["pwbn"], report)
+
+    _put_conv(sd, params, "cpm.align.0", ["cpm", "align"], report)
+    for i in range(3):
+        _put_conv(sd, params, f"cpm.trunk.{i}.0", ["cpm", f"trunk{i}", "dw"], report)
+        _put_conv(sd, params, f"cpm.trunk.{i}.2", ["cpm", f"trunk{i}", "pw"], report)
+    _put_conv(sd, params, "cpm.conv.0", ["cpm", "conv"], report)
+
+    ini = ["initial_stage"]
+    for i in range(3):
+        _put_conv(sd, params, f"initial_stage.trunk.{i}.0", ini + [f"trunk{i}"], report)
+    _put_conv(sd, params, "initial_stage.heatmaps.0.0", ini + ["hm0"], report)
+    _put_conv(sd, params, "initial_stage.heatmaps.1.0", ini + ["hm1"], report)
+    _put_conv(sd, params, "initial_stage.pafs.0.0", ini + ["paf0"], report)
+    _put_conv(sd, params, "initial_stage.pafs.1.0", ini + ["paf1"], report)
+
+    r = 0
+    while f"refinement_stages.{r}.trunk.0.initial.0.weight" in sd:
+        ref = [f"refine{r}"]
+        for b in range(5):
+            t = f"refinement_stages.{r}.trunk.{b}"
+            f = ref + [f"block{b}"]
+            _put_conv(sd, params, f"{t}.initial.0", f + ["initial"], report)
+            _put_conv(sd, params, f"{t}.trunk.0.0", f + ["trunk0"], report)
+            _put_bn(sd, params, f"{t}.trunk.0.1", f + ["trunk0_bn"], report)
+            _put_conv(sd, params, f"{t}.trunk.1.0", f + ["trunk1"], report)
+            _put_bn(sd, params, f"{t}.trunk.1.1", f + ["trunk1_bn"], report)
+        _put_conv(sd, params, f"refinement_stages.{r}.heatmaps.0.0", ref + ["hm0"], report)
+        _put_conv(sd, params, f"refinement_stages.{r}.heatmaps.1.0", ref + ["hm1"], report)
+        _put_conv(sd, params, f"refinement_stages.{r}.pafs.0.0", ref + ["paf0"], report)
+        _put_conv(sd, params, f"refinement_stages.{r}.pafs.1.0", ref + ["paf1"], report)
+        r += 1
     return _finish(tree, params), report

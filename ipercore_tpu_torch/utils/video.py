@@ -1,13 +1,16 @@
 """Host-side video / image IO: ffmpeg decode/encode, frame folders, fusing.
 
 The port's own copy of `ipercore_tpu/utils/video.py`. The PNG writer and
-reader are pure python + zlib here, without the JAX package's native filter
-library: the writer stores every row unfiltered, so its bytes differ from a
-file that library filtered, while the decoded pixels are the same. The reader
-undoes all five PNG filters; Sub and Up are vectorised. `load_image` resizes
-with the port's `resize_image` (antialiased, as `jax.image.resize` is).
-Everything degrades gracefully without ffmpeg (unit tests run on image
-folders); `make_video` raises when neither ffmpeg nor cv2 can encode.
+reader keep zlib and the chunk framing in Python and filter rows with the
+port's native routines (`utils/native.py`, `csrc/pngfilters.cpp`), as the JAX
+package does when its library builds: the writer stores every row
+Sub-filtered, so its files are byte-equal to the JAX package's, and the reader
+undoes all five PNG filters natively. `unfilter_rows_plain` and
+`filter_sub_plain` are the Python versions the native routines are held
+against. `load_image` resizes with the port's `resize_image` (antialiased, as
+`jax.image.resize` is). Everything degrades gracefully without ffmpeg (unit
+tests run on image folders); `make_video` raises when neither ffmpeg nor cv2
+can encode.
 """
 from __future__ import annotations
 
@@ -40,13 +43,24 @@ def list_frames(folder: str) -> list[str]:
     )
 
 
-# --- png io (pure python, zlib): hermetic without cv2 ---------------------------
+# --- png io (zlib in python, row filters native) -------------------------------
+
+def filter_sub_plain(rows: np.ndarray, bpp: int) -> bytes:
+    """The Sub filter in numpy: (H, stride) uint8 rows -> filter-tagged
+    scanline bytes, what `native.png_filter_sub` returns."""
+    rows = np.asarray(rows, np.uint8)
+    sub = rows.copy()
+    sub[:, bpp:] = rows[:, bpp:] - rows[:, :-bpp]  # uint8 arithmetic wraps, as in C
+    return np.concatenate([np.ones((len(rows), 1), np.uint8), sub], axis=1).tobytes()
+
 
 def write_png(path: str, img: np.ndarray) -> None:
     """Write an (H, W, C) uint8 image (C = 1, 3 or 4; or (H, W) gray as RGB)
-    as PNG, rows unfiltered."""
+    as PNG, every row Sub-filtered by the native routine."""
     import struct
     import zlib
+
+    from ipercore_tpu_torch.utils import native
 
     img = np.asarray(img, np.uint8)
     if img.ndim == 2:
@@ -55,8 +69,9 @@ def write_png(path: str, img: np.ndarray) -> None:
     colortype = {1: 0, 3: 2, 4: 6}.get(img.shape[2])
     if colortype is None:
         raise ValueError(f"write_png: unsupported channel count {img.shape[2]}")
-    rows = img.reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    raw = native.png_filter_sub(img.reshape(h, -1), bpp=img.shape[2])
+    if raw is None:
+        raise ValueError(f"write_png: cannot filter an image of shape {img.shape}")
 
     def chunk(tag, data):
         c = tag + data
@@ -69,8 +84,9 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(png)
 
 
-def read_png(path: str) -> np.ndarray:
-    """Read an 8-bit RGB(A)/gray PNG into (H, W, 3) uint8 (stdlib zlib)."""
+def png_rows(path: str) -> tuple[bytes, int, int, int]:
+    """The inflated, still filtered scanlines of an 8-bit PNG and its
+    (height, width, channels)."""
     import struct
     import zlib
 
@@ -97,11 +113,26 @@ def read_png(path: str) -> np.ndarray:
     if colortype == 3:
         raise ValueError("read_png: palette PNGs are not supported (colortype 3)")
     nch = {0: 1, 2: 3, 4: 2, 6: 4}[colortype]
-    raw = zlib.decompress(idat)
-    stride = w * nch
+    return zlib.decompress(idat), h, w, nch
 
+
+def read_png(path: str) -> np.ndarray:
+    """Read an 8-bit RGB(A)/gray PNG into (H, W, 3) uint8; rows are undone by
+    the native routine."""
+    from ipercore_tpu_torch.utils import native
+
+    raw, h, w, nch = png_rows(path)
+    out = native.png_unfilter(raw, h, w * nch, nch)
+    if out is None:
+        raise ValueError(f"read_png: corrupt scanlines or an unknown row filter in {path}")
+    return _png_channels(out.reshape(h, w, nch))
+
+
+def unfilter_rows_plain(raw: bytes, h: int, stride: int, nch: int) -> np.ndarray:
+    """Undo the five PNG row filters in Python (Sub and Up vectorised, Average
+    and Paeth byte by byte): the plain version of `native.png_unfilter`."""
     out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros((stride,), np.uint8)
+    prev = np.zeros((stride,), np.int32)
     pos = 0
     for row in range(h):
         ft = raw[pos]
@@ -132,7 +163,7 @@ def read_png(path: str) -> np.ndarray:
             raise ValueError(f"unknown filter {ft}")
         out[row] = cur.astype(np.uint8)
         prev = out[row].astype(np.int32)
-    return _png_channels(out.reshape(h, w, nch))
+    return out
 
 
 def _png_channels(img: np.ndarray) -> np.ndarray:

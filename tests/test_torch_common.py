@@ -13,6 +13,14 @@ import torch
 import jax.numpy as jnp
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+# Under pytest-xdist each worker would start one torch thread per core, and
+# the workers' threads would then contend for the same cores (a worker's CPU
+# tests ran several times slower than alone): share the cores out instead.
+# Every worker imports this module while it collects the tests.
+_XDIST_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _XDIST_WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _XDIST_WORKERS))
 # the published weight files in this repository's history (assets/WEIGHTS.md)
 WEIGHTS_COMMIT = "1448015"
 _restored: dict[str, str] = {}

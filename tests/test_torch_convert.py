@@ -14,6 +14,8 @@ from ipercore_tpu.utils import torch_convert as JTC
 from ipercore_tpu_torch.models.networks import build_discriminator
 from ipercore_tpu_torch.models.networks import criterions as C
 from ipercore_tpu_torch.models.networks.inception import InceptionV3Features
+from ipercore_tpu_torch.tools.pose2d import OpenPoseBody25
+from ipercore_tpu_torch.tools.pose2d_mobilenet import MobilenetOpenPose
 from ipercore_tpu_torch.utils import checkpoint as tckpt
 from ipercore_tpu_torch.utils import torch_convert as TTC
 
@@ -75,6 +77,46 @@ def _disc_prefix(m):
     return f"{m[0]}.model.{3 * int(m[1].split('_')[1])}"
 
 
+def _openpose_prefix(m):
+    """Body-25's reference names: `model0.conv1_1`, and inside a block
+    `main.{i-1}.split{col}.Mconv{i}_...` (Mconv6 / Mconv7 at `main.5`)."""
+    if m[0] == "model0":
+        return f"model0.{m[1]}"
+    i = int(m[1][len("Mconv"):].split("_")[0]) if m[1].startswith("Mconv") else \
+        int(m[1][len("Mprelu"):].split("_")[0])
+    if i <= 5:
+        return f"{m[0]}.main.{i - 1}.split{m[1].rsplit('_', 1)[1]}.{m[1]}"
+    return f"{m[0]}.main.5.{m[1]}"
+
+
+_MOBILENET_HEADS = {"hm0": "heatmaps.0.0", "hm1": "heatmaps.1.0", "paf0": "pafs.0.0", "paf1": "pafs.1.0"}
+
+
+def _mobilenet_prefix(m):
+    """Osokin's checkpoint names (`model.{i}.{j}`, `cpm.*`, `initial_stage.*`,
+    `refinement_stages.{r}.*`)."""
+    if m[0] in ("model0_conv", "model0_bn"):
+        return "model.0." + ("0" if m[0] == "model0_conv" else "1")
+    if m[0].startswith("model"):
+        return f"model.{m[0][len('model'):]}.{ {'dw': 0, 'dwbn': 1, 'pw': 3, 'pwbn': 4}[m[1]] }"
+    if m[0] == "cpm":
+        if len(m) == 1:  # `cpm/conv/kernel`, which `_state_dict` reads as a conv-held kernel
+            return "cpm"
+        if m[1].startswith("trunk"):
+            return f"cpm.trunk.{m[1][len('trunk'):]}.{0 if m[2] == 'dw' else 2}"
+        return f"cpm.{m[1]}.0"
+    if m[0] == "initial_stage":
+        if m[1].startswith("trunk"):
+            return f"initial_stage.trunk.{m[1][len('trunk'):]}.0"
+        return f"initial_stage.{_MOBILENET_HEADS[m[1]]}"
+    r = m[0][len("refine"):]
+    if m[1].startswith("block"):
+        leaf = {"initial": "initial.0", "trunk0": "trunk.0.0", "trunk0_bn": "trunk.0.1", "trunk1": "trunk.1.0",
+                "trunk1_bn": "trunk.1.1"}[m[2]]
+        return f"refinement_stages.{r}.trunk.{m[1][len('block'):]}.{leaf}"
+    return f"refinement_stages.{r}.{_MOBILENET_HEADS[m[1]]}"
+
+
 def _case(name):
     """(port converter, JAX converter, like (flat), state dict)."""
     if name == "generator":
@@ -106,6 +148,14 @@ def _case(name):
         sd["AuxLogits.conv0.conv.weight"] = np.zeros((128, 768, 1, 1), np.float32)
         sd["fc.weight"] = np.zeros((1000, 2048), np.float32)
         return TTC.convert_inception, JTC.convert_inception, like, sd
+    if name == "openpose":
+        like = tckpt.seeded_flat_params(OpenPoseBody25(), 0)
+        return TTC.convert_openpose, JTC.convert_openpose, like, _state_dict(like, _openpose_prefix, 8)
+    if name == "mobilenet_openpose":
+        like = tckpt.seeded_flat_params(MobilenetOpenPose(), 0)
+        sd = _state_dict(like, _mobilenet_prefix, 9)
+        sd["cpm.conv.0.weight"] = sd.pop("cpm.conv.weight")
+        return TTC.convert_mobilenet_openpose, JTC.convert_mobilenet_openpose, like, sd
     like = tckpt.seeded_flat_params(C.LPIPSLin(), 0)
     sd = _state_dict(like, _lpips_prefix, 7)
     sd["scaling_layer.shift"] = np.array([-0.030, -0.088, -0.188], np.float32).reshape(1, 3, 1, 1)
@@ -113,7 +163,8 @@ def _case(name):
     return TTC.convert_lpips, JTC.convert_lpips, like, sd
 
 
-CASES = ["generator", "discriminator", "vgg19", "vgg16", "vgg11", "sphereface", "senet50", "inception", "lpips"]
+CASES = ["generator", "discriminator", "vgg19", "vgg16", "vgg11", "sphereface", "senet50", "inception", "lpips",
+         "openpose", "mobilenet_openpose"]
 
 
 def _both(port, jax_fn, sd, like):

@@ -43,7 +43,8 @@ def runs(tmp_path_factory):
     write_train_video(str(work / "data"), "v1", 4, seed=42, mask_size=W.S)
     env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT")}
     procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_dp_worker", str(work)], cwd=ROOT,
-                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2", OMP_NUM_THREADS="2"),
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
+                                       OMP_NUM_THREADS=str(W.THREADS)),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in (0, 1)]
     end = time.monotonic() + DEADLINE_S
@@ -56,16 +57,20 @@ def runs(tmp_path_factory):
                 p.communicate()
     assert all(p.returncode == 0 for p in procs), "\n".join(l[-3000:] for l in logs)
 
-    # one process on the global batch
+    # one process on the global batch, with the torch threads of a rank (the
+    # split of a reduction over threads is part of the order of additions)
     comp, gen, dis, vgg, cfg = W.rig()
     batch = {k: torch.as_tensor(v) for k, v in W.global_batch().items()}
     real = W.compose_per_sample()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(W.THREADS)
     try:
         state, metrics = T.train_step(T.create_train_state(gen, dis, cfg), batch, comp, gen, dis, vgg, None,
                                       cfg, ns=W.NS)
         train(W.train_opt(str(work / "one"), str(work / "data"), 2), max_iters=2, device="cpu")
     finally:
         T.fc.forward = real
+        torch.set_num_threads(threads)
     return work, state, metrics, gen, dis
 
 

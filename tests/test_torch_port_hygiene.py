@@ -10,6 +10,7 @@ import subprocess
 import sys
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -55,7 +56,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "ipercore_tpu_torch.parallel.mesh", "ipercore_tpu_torch.services.train",
               "ipercore_tpu_torch.utils.logging", "ipercore_tpu_torch.utils.live_dashboard",
               "ipercore_tpu_torch.utils.torch_convert", "ipercore_tpu_torch.services.evaluate",
-              "ipercore_tpu_torch.models.networks.inception"):
+              "ipercore_tpu_torch.models.networks.inception", "ipercore_tpu_torch.utils.native",
+              "ipercore_tpu_torch.tools.detection", "ipercore_tpu_torch.tools.pose2d",
+              "ipercore_tpu_torch.tools.pose2d_mobilenet", "ipercore_tpu_torch.tools.mattors",
+              "ipercore_tpu_torch.tools.preprocessor", "ipercore_tpu_torch.utils.keypoints"):
         assert m in names
     code = (
         "import importlib, sys\n"
@@ -91,10 +95,36 @@ def test_chip_smoke_reads_no_asset_and_no_jax():
 
 
 def test_no_build_directory_from_importing():
-    assert cuda_build._loaded == {}
+    """No CUDA library is ever loaded in a CPU test process (the host-code
+    libraries of `HOST_SOURCES` are, by the tests that write or read PNGs or
+    label components; that importing builds nothing is checked in a fresh
+    process by the first test)."""
+    assert not set(cuda_build._loaded) & set(cuda_build.SOURCES)
     assert cuda_build.BUILD_DIR == os.path.join(PKG, "_build")
     assert all(os.path.exists(os.path.join(cuda_build.CSRC_DIR, f"{s}.cu")) for s in cuda_build.SOURCES)
+    assert all(os.path.exists(os.path.join(cuda_build.CSRC_DIR, f"{s}.cpp")) for s in cuda_build.HOST_SOURCES)
     assert "-gencode=arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+
+
+def test_native_routines_come_from_the_port_build_only():
+    """The port names no library or source of the JAX package's `native/`,
+    loads shared libraries only through `utils/cuda_build.py`, and every
+    library it loads lies in `ipercore_tpu_torch/_build/`, built from its own
+    copies under `csrc/`."""
+    from ipercore_tpu_torch.utils import native
+
+    rx = re.compile(r"""["'/]native/|join\(.*["']native["']|libcclabel|libpngfilters""")
+    assert not [p for p in _python_sources() if rx.search(_read(p))]
+    loaders = [p for p in _python_sources() if re.search(r"ctypes\.(CDLL|LoadLibrary)\(|cdll\.LoadLibrary\(", _read(p))]
+    assert loaders == [os.path.join(PKG, "utils", "cuda_build.py")], loaders
+    for name in cuda_build.SOURCES + cuda_build.HOST_SOURCES:
+        src, lib = cuda_build._paths(name)
+        assert src.startswith(cuda_build.CSRC_DIR + os.sep) and os.path.isfile(src)
+        assert os.path.dirname(lib) == cuda_build.BUILD_DIR
+    native.cc_boxes(np.ones((3, 3), bool))
+    native.png_unfilter(b"\x00" * 4, 1, 3, 3)
+    for lib in list(native._bound.values()) + list(cuda_build._loaded.values()):
+        assert os.path.dirname(os.path.abspath(lib._name)) == cuda_build.BUILD_DIR, lib._name
 
 
 ENTRY_POINTS = [
@@ -120,6 +150,14 @@ ENTRY_POINTS = [
     ("ipercore_tpu_torch.services.evaluate", "PerceptualMetric"),
     ("ipercore_tpu_torch.services.evaluate", "InceptionFID"),
     ("ipercore_tpu_torch.services.evaluate", "LPIPSMetric"),
+    ("ipercore_tpu_torch.tools.pose2d", "OpenPoseRunner"),
+    ("ipercore_tpu_torch.tools.pose2d", "build_pose2d_estimator"),
+    ("ipercore_tpu_torch.tools.pose2d_mobilenet", "MobilenetOpenPoseRunner"),
+    ("ipercore_tpu_torch.tools.mattors", "HumanMattor"),
+    ("ipercore_tpu_torch.tools.detection", "SegmentationDetector"),
+    ("ipercore_tpu_torch.tools.detection", "pose_person_boxes"),
+    ("ipercore_tpu_torch.tools.detection", "detect_person_boxes"),
+    ("ipercore_tpu_torch.tools.preprocessor", "process_crop_img"),
 ]
 
 

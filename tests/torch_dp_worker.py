@@ -18,6 +18,7 @@ import torch
 
 S = 64
 NS, NT = 2, 1
+THREADS = 2  # torch threads of each rank, and of the test's one-process runs
 CFG = {
     "BGNet": {"num_filters": [8, 16, 16, 32], "n_res_block": 1},
     "SIDNet": {"num_filters": [8, 16, 32], "n_res_block": 1},
@@ -103,7 +104,7 @@ def main(work: str) -> None:
     from ipercore_tpu_torch.trainers import lwg_trainer as T
     from ipercore_tpu_torch.utils.checkpoint import save_train_ckpt
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(THREADS)
     compose_per_sample()
     device = mesh.init_data_parallel("cpu", init_method="file://" + os.path.join(work, "store"))
     r = mesh.rank()
