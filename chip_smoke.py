@@ -25,8 +25,13 @@ Then the other generators, trainers and evaluation (`zoo`, `evaluate`), and
 preprocessing part 1 (`preprocess_2d`: person detection with the segmenter
 and Body-25, the crop and 2D pose on a 48-frame 1080x1920 clip; each network
 on the card against the CPU, the native host routines against their plain
-versions), which runs none of the four kernels.
-Reads no weight file: every network is seeded.
+versions), which runs none of the four kernels; and preprocessing part 2
+(`preprocess_3d`: SPIN on those crops, multi-hypothesis SMPLify with the GMM
+pose prior, the silhouette offset fit against K3's silhouettes of a wider
+body, cloth links; each on the card against the CPU, K3 bit-equal to its
+plain version on the phase's batches).
+Reads no weight file: every network is seeded (the GMM pose prior is data,
+tracked in the repository).
 Every phase prints one JSON line; any failed check raises, so the exit code
 is non-zero. Needs one GPU; exits with code 2 when there is none.
 """
@@ -1979,19 +1984,27 @@ def person_clip(device, seed: int = 12) -> np.ndarray:
     return frames.clamp_(-1, 1).cpu().numpy()
 
 
-def conv_flops_body25(size: int) -> float:
-    """Multiply-adds x 2 of Body-25's convolutions on one size² frame."""
-    from ipercore_tpu_torch.tools.pose2d import OpenPoseBody25
+def conv_flops(net: torch.nn.Module, x: torch.Tensor) -> float:
+    """Multiply-adds x 2 of the convolutions and linear layers of one forward
+    of `net` on `x`, from the output shapes their forward hooks see."""
+    total = [0.0]
 
-    total, h = 0.0, float(size)
-    net = OpenPoseBody25()
-    for name, m in net.named_modules():
+    def hook(m, inp, out):
         if isinstance(m, torch.nn.Conv2d):
-            # the stem's three pools: conv1_* at size, conv2_* at /2, conv3_* at /4, the rest at /8
-            scale = 1 if ".conv1_" in name else 2 if ".conv2_" in name else 4 if ".conv3_" in name else 8
-            k = m.kernel_size[0] * m.kernel_size[1]
-            total += 2.0 * (h / scale) ** 2 * k * m.in_channels * m.out_channels
-    return total
+            k = m.kernel_size[0] * m.kernel_size[1] * m.in_channels // m.groups
+            total[0] += 2.0 * out.numel() * k
+        else:
+            total[0] += 2.0 * out.numel() * m.in_features
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
 
 
 def agreement(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
@@ -2177,7 +2190,7 @@ def preprocess_phase(device) -> dict:
     for us, key in times:
         by_kind["convolutions" if kernel_kind(key) == "convolutions" else "other"] += us / 1e3
     busy = sum(by_kind.values())
-    flops = 2 * CLIP_FRAMES * conv_flops_body25(POSE_SIZE)  # the flip doubles the batch
+    flops = 2 * CLIP_FRAMES * conv_flops(runner.net, x368[:1])  # the flip doubles the batch
     out["openpose"] = {
         "forward_ms": ms, "frames_per_s": CLIP_FRAMES / (ms / 1e3), "chunk": 32,
         # busy and wall of one profiled forward; `wall_ms` is one forward without the profiler
@@ -2273,6 +2286,238 @@ def preprocess_phase(device) -> dict:
         check(vid.png_rows(sub)[0] == vid.filter_sub_plain(img.reshape(SIZE, -1), 3),
               "preprocess_2d: native write_png rows differ from Sub filtering in Python")
     out["png_decode_ms"] = {"native": native_ms, "python_loop": plain_ms, "size": SIZE, "filter": "paeth"}
+    return out, crops
+
+
+SPIN_BATCH, SMPLIFY_FRAMES, DEFORM_FRAMES, MASK_SIZE = 32, 48, 4, 512
+
+
+def natural_sequence(model, n: int, seed: int = 15):
+    """`n` frames of a standing person on the host from a seed: the natural
+    stance plus a shared offset and a per-frame drift on the body joints, a
+    shared shape, a camera that drifts; the keypoints are their cocoplus-19
+    joints plus N(0, 0.01) NDC noise, with a seeded 10 % of confidences 0.
+    Returns (theta (n, 85), kps (n, 19, 2), conf (n, 19)) as tensors on the
+    model's device."""
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.tools.pose3d import natural_stance_aa
+
+    rng = np.random.RandomState(seed)
+    pose = np.tile(natural_stance_aa() + 0.08 * rng.randn(72), (n, 1)) + 0.01 * rng.randn(n, 72).cumsum(0)
+    pose[:, :3] = 0.0
+    cam = np.stack([np.full(n, 1.3 + 0.2 * rng.rand()), 0.1 * rng.randn() + 0.002 * np.arange(n),
+                    np.full(n, 0.1 * rng.randn())], axis=1)
+    theta = np.concatenate([cam, pose, np.tile(0.3 * rng.randn(10), (n, 1))], axis=1).astype(np.float32)
+    dev = model.v_template.device
+    theta_t = torch.as_tensor(theta, device=dev)
+    j2d = smpl_mod.get_details(model, theta_t)["j2d"]
+    kps = j2d + torch.as_tensor(0.01 * rng.randn(*j2d.shape).astype(np.float32), device=dev)
+    conf = torch.as_tensor((rng.rand(n, 19) >= 0.1).astype(np.float32), device=dev)
+    return theta_t, kps, conf
+
+
+def float64_model(model):
+    """`model` with its float arrays in f64 (an exact reference on the CPU)."""
+    fields = ("v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights", "joint_regressor",
+              "hands_mean")
+    return model._replace(**{f: getattr(model, f).double() for f in fields},
+                          chain=model.chain._replace(bottom=model.chain.bottom.double()))
+
+
+def hard_silhouettes(model, theta, offsets, size: int):
+    """(fim >= 0) of `theta` posed with `offsets`, rastered through K3."""
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.ops import rasterizer as rz
+    from ipercore_tpu_torch.ops.rasterizer_cuda import raster_fim
+
+    d = smpl_mod.get_details(model, theta, offsets=offsets)
+    fv = rz.verts_to_faces(rz.project_verts(d["verts"], d["cam"]), model.faces).contiguous()
+    return (raster_fim(fv, size).fim >= 0).float(), fv
+
+
+def links_agree(got: np.ndarray, want: np.ndarray, y: np.ndarray) -> dict:
+    """Cloth links on the card against the CPU: the same sources and flags;
+    each target equal, or tied with the other's (the nearest vertex by y among
+    vertices on one ring, which the two devices' skinning can round apart by
+    an ulp): its y within 1e-6 of the other's."""
+    check(got.shape == want.shape and np.array_equal(got[:, [0, 2]], want[:, [0, 2]]),
+          f"preprocess_3d: cloth link sources differ card {got.shape} against CPU {want.shape}")
+    differ = got[:, 1] != want[:, 1]
+    gap = float(np.abs(y[got[differ, 1]] - y[want[differ, 1]]).max()) if differ.any() else 0.0
+    check(gap <= 1e-6, f"preprocess_3d: cloth link targets differ beyond a tie ({gap})")
+    return {"links": int(len(got)), "targets_equal": int((~differ).sum()), "tied_targets_y_gap": gap}
+
+
+def preprocess_3d_phase(device, crops: np.ndarray) -> dict:
+    """Preprocessing part 2 as `Preprocessor.execute` stage 1.3 and
+    `digital_deform` run it: SPIN (seeded, at its published width) on the 48
+    crops of `preprocess_2d` resized to 224², multi-hypothesis SMPLify from
+    that theta against the keypoints of a seeded natural sequence with the
+    GMM prior, the silhouette offset fit at its defaults against K3's hard
+    silhouettes of a wider body on 4 of the fitted frames, then the fit at
+    the JAX test's settings with its IoU through K3, and cloth links. Then
+    each part on the card against the CPU, K3 against its plain version on
+    this phase's batches, and the times."""
+    import types
+
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+    from ipercore_tpu_torch.ops.sampling import resize_image
+    from ipercore_tpu_torch.tools import deformers as dfm
+    from ipercore_tpu_torch.tools import pose3d as p3
+    from ipercore_tpu_torch.utils.checkpoint import seeded_flat_params
+
+    model = smpl_mod.template_model(device=device)
+    cpu_model = smpl_mod.template_model(device="cpu")
+    spin_flat = seeded_flat_params(p3.SPINNet(), p3.SPIN_SEED)
+    runner = p3.SPINRunner(params=spin_flat, device=device)
+    prior = p3.load_gmm_prior(p3.GMM_DEFAULT_WEIGHTS, device=device)
+    check(prior is not None, "preprocess_3d: the GMM pose prior is missing from the checkout")
+    spin_in = resize_image(torch.as_tensor(crops, device=device), p3.HMR_IMG_SIZE, p3.HMR_IMG_SIZE)
+    gt, kps, conf = natural_sequence(model, SMPLIFY_FRAMES)
+    wide = torch.zeros_like(model.v_template)
+    wide[:, 0] = 0.15 * model.v_template[:, 0]
+    wide[:, 2] = 0.15 * model.v_template[:, 2]
+    out = {"frames": SMPLIFY_FRAMES, "spin_parameters": sum(p.numel() for p in runner.net.parameters())}
+
+    # --- the main path, launch counts set to 0 just before it ---------------
+    zero_counts()
+    t0 = time.perf_counter()
+    theta_spin = torch.as_tensor(runner.run(spin_in, batch_size=SPIN_BATCH), device=device)
+    torch.cuda.synchronize()
+    out["spin_first_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    theta = p3.smplify_refine_multi(model, theta_spin, kps, conf, p3.SMPLifyConfig(), prior)
+    torch.cuda.synchronize()
+    smplify_s = time.perf_counter() - t0
+    frames = theta[:DEFORM_FRAMES].contiguous()
+    obs, obs_fv = hard_silhouettes(model, frames, wide, MASK_SIZE)
+    info = types.SimpleNamespace(get_array={"smpls": frames.cpu().numpy(),
+                                            "masks": (1.0 - obs)[..., None].cpu().numpy()}.get)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    offsets = dfm.run_sil2smpl_offsets({}, info, device=device)
+    torch.cuda.synchronize()
+    deform_s = time.perf_counter() - t0
+    deform_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fitted = dfm.run_sil2smpl_offsets({}, info, n_steps=200, lr=2e-3, reg=1.0, device=device)
+    sil_fit, fit_fv = hard_silhouettes(model, frames, torch.as_tensor(fitted, device=device), MASK_SIZE)
+    sil_zero, zero_fv = hard_silhouettes(model, frames, torch.zeros_like(wide), MASK_SIZE)
+    legs_v = model.v_template.cpu().numpy()
+    low = legs_v[:, 1] > 0.3
+    legs = (np.nonzero(low & (legs_v[:, 0] > 0.02))[0], np.nonzero(low & (legs_v[:, 0] < -0.02))[0])
+    skirt_y = float(np.random.RandomState(16).uniform(0.6, 1.0))
+    links = dfm.smpl_link(model, frames[0].cpu().numpy(), skirt_y, leg_ids=legs)
+    out["launches"] = read_counts()
+    check(out["launches"]["raster_fim"] > 0, "preprocess_3d: K3 was not launched")
+
+    # --- SPIN ---------------------------------------------------------------
+    check(theta_spin.shape == (SMPLIFY_FRAMES, 85) and bool(torch.isfinite(theta_spin).all()),
+          "preprocess_3d: SPIN theta")
+    run = lambda: runner.run(spin_in, batch_size=SPIN_BATCH)
+    n_batches = -(-SMPLIFY_FRAMES // SPIN_BATCH)
+    ms = cuda_ms(run, reps=3, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    spin_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_kind = {"convolutions": 0.0, "other": 0.0}
+    for us, key in kernel_times(run):
+        by_kind["convolutions" if kernel_kind(key) == "convolutions" else "other"] += us / 1e3
+    flops = conv_flops(runner.net, spin_in[:1]) * n_batches * SPIN_BATCH
+    two = spin_in[:2]
+    got, want = runner.run(two, batch_size=2), p3.SPINRunner(params=spin_flat, device="cpu").run(two.cpu(), batch_size=2)
+    spin_err = float(np.abs(got - want).max())
+    check(spin_err <= 1e-3 * float(np.abs(want).max()), f"preprocess_3d: SPIN card against CPU {spin_err}")
+    out["spin"] = {"ms": ms, "batch": SPIN_BATCH, "padded_frames": n_batches * SPIN_BATCH,
+                   "device_ms": dict(by_kind, busy=sum(by_kind.values())), "peak_memory_gib": spin_peak,
+                   "host_syncs_per_batch": host_syncs(run) / n_batches,
+                   "gflop_per_image": flops / (n_batches * SPIN_BATCH) / 1e9,
+                   "tflop_per_s": flops / (ms / 1e3) / 1e12, "card_vs_cpu_max_abs_err": spin_err,
+                   "theta_max_abs": float(np.abs(want).max())}
+    out["spin_frames_per_s"] = SMPLIFY_FRAMES / (ms / 1e3)
+
+    # --- SMPLify -------------------------------------------------------------
+    cfg = p3.SMPLifyConfig()
+    steps = cfg.n_iters * 2 + max(cfg.n_iters // 2, 10)
+    err = lambda th: float(p3.reprojection_error(model, th, kps, conf).mean())
+    e_init, e_fit, e_gt = err(theta_spin), err(theta), err(gt)
+    check(bool(torch.isfinite(theta).all()) and e_fit < e_init and e_fit < 0.05,
+          f"preprocess_3d: SMPLify reprojection error {e_fit} (init {e_init})")
+    short = p3.SMPLifyConfig(n_iters=5)
+    # syncs a step: the difference between 10 and 5 steps (set-up and the end cancel)
+    syncs = [host_syncs(lambda: p3.smplify_refine(model, theta_spin, kps, conf, c, prior))
+             for c in (short, p3.SMPLifyConfig(n_iters=10))]
+    # the card against the CPU on 2 frames, 5 steps: from the keypoint-fit natural
+    # stance within 1e-4; from the seeded SPIN theta, whose joints sit near pi where
+    # the f32 objective's gradient is ill-conditioned, no further from an f64 run
+    # on the CPU than twice the CPU's own f32 run is
+    cpu_prior = p3.load_gmm_prior(p3.GMM_DEFAULT_WEIGHTS, device="cpu")
+    model64, prior64 = float64_model(cpu_model), p3.GMMPosePrior(*[x.double() for x in cpu_prior])
+    agree = {}
+    for name, init in (("natural_stance", p3.keypoint_cam_init(model, kps[:2], conf[:2])),
+                       ("spin", theta_spin[:2])):
+        k = p3.smplify_refine(model, init, kps[:2], conf[:2], short, prior).cpu().double()
+        c = p3.smplify_refine(cpu_model, init.cpu(), kps[:2].cpu(), conf[:2].cpu(), short, cpu_prior).double()
+        c64 = p3.smplify_refine(model64, init.cpu().double(), kps[:2].cpu().double(), conf[:2].cpu().double(),
+                                short, prior64)
+        agree[name] = {"card_vs_cpu": float((k - c).abs().max()), "card_vs_cpu_f64": float((k - c64).abs().max()),
+                       "cpu_f32_vs_f64": float((c - c64).abs().max())}
+    check(agree["natural_stance"]["card_vs_cpu"] <= 1e-4,
+          f"preprocess_3d: SMPLify card against CPU from the natural stance {agree['natural_stance']}")
+    check(agree["spin"]["card_vs_cpu_f64"] <= max(1e-4, 2 * agree["spin"]["cpu_f32_vs_f64"]),
+          f"preprocess_3d: SMPLify card against CPU from the SPIN theta {agree['spin']}")
+    near_pi = float((np.pi - theta_spin[:, 3:75].reshape(-1, 24, 3).norm(dim=-1)).min())
+    out["smplify"] = {"steps": steps, "reproj_err_init": e_init, "reproj_err_fit": e_fit,
+                      "reproj_err_ground_truth": e_gt, "card_vs_cpu_5_steps": agree,
+                      "spin_init_least_distance_to_pi": near_pi, "host_syncs_5_and_10_steps": syncs}
+    out.update(smplify_s=smplify_s, smplify_ms_per_step=smplify_s * 1e3 / steps,
+               host_syncs_per_step=(syncs[1] - syncs[0]) / 5, reproj_err={"init": e_init, "fit": e_fit})
+
+    # --- the silhouette offset fit --------------------------------------------
+    check(np.isfinite(offsets).all() and np.isfinite(fitted).all(), "preprocess_3d: offsets")
+    iou = lambda a, b: float((a * b).sum() / (a + b - a * b).sum())
+    area = lambda m: float(m.sum())
+    iou_fit, iou_zero = iou(sil_fit, obs), iou(sil_zero, obs)
+    a_obs, a_fit, a_zero = area(obs), area(sil_fit), area(sil_zero)
+    check(iou_fit > iou_zero and a_zero < a_obs and a_zero < a_fit and abs(a_fit - a_obs) < abs(a_zero - a_obs),
+          f"preprocess_3d: the fit does not move toward the observed silhouette "
+          f"(IoU {iou_fit} against {iou_zero}; areas {a_fit}, {a_zero}, observed {a_obs})")
+    per_step = [host_syncs(lambda: dfm.run_sil2smpl_offsets({}, info, n_steps=k, device=device)) for k in (2, 4)]
+    obs_small = resize_image(obs[..., None], 128, 128)[..., 0]  # as the fit shrinks its masks
+    off_t = torch.as_tensor(fitted, device=device)
+    g_k = []
+    for dev_model, th, ob, off in ((model, frames, obs_small, off_t),
+                                   (cpu_model, frames.cpu(), obs_small.cpu(), off_t.cpu())):
+        o = off.clone().requires_grad_(True)
+        loss = dfm.sil_fit_loss(dev_model, th, ob, o, 1e4)
+        g_k.append((float(loss.detach()), torch.autograd.grad(loss, [o])[0].cpu()))
+    (lk, gk), (lc, gc) = g_k
+    loss_err = abs(lk - lc) / abs(lc)
+    grad_rel = float((gk - gc).norm() / gc.norm())
+    check(loss_err <= 1e-5 and grad_rel <= 0.01,
+          f"preprocess_3d: silhouette loss card against CPU {loss_err}, gradient {grad_rel}")
+    out["deform"] = {"frames": DEFORM_FRAMES, "steps": 500, "size": 128, "mask_size": MASK_SIZE,
+                     "peak_memory_gib": deform_peak, "host_syncs_per_step": (per_step[1] - per_step[0]) / 2,
+                     "iou_fitted": iou_fit, "iou_unfitted": iou_zero,
+                     "area_observed": a_obs, "area_fitted": a_fit, "area_unfitted": a_zero,
+                     "offsets_max_abs_defaults": float(np.abs(offsets).max()),
+                     "offsets_max_abs_test_settings": float(np.abs(fitted).max()),
+                     "card_vs_cpu_loss_rel_err": loss_err, "card_vs_cpu_grad_rel_l2": grad_rel}
+    out.update(deform_s=deform_s, deform_ms_per_step=deform_s * 1e3 / 500, peak_memory_gib=deform_peak)
+    check(deform_peak < 3.0, f"preprocess_3d: the deform fit peaked at {deform_peak} GiB")
+
+    # --- K3 against its plain version on this phase's batches ------------------
+    k3 = {}
+    for name, fv in (("observed", obs_fv), ("fitted", fit_fv), ("unfitted", zero_fv)):
+        got_r, ref = rc.raster_fim(fv, MASK_SIZE), rc.raster_fim_plain(fv, MASK_SIZE)
+        raster_agreement(got_r.fim, ref.fim, got_r.wim, ref.wim, f"raster_fim/preprocess_3d {name}", bit_equal=True)
+        k3[name] = {"N": int(fv.shape[0]), "bit_equal": True}
+    out["k3"] = k3
+
+    # --- cloth links ----------------------------------------------------------
+    cpu_links = dfm.smpl_link(cpu_model, frames[0].cpu().numpy(), skirt_y, leg_ids=legs)
+    y = dfm._posed_numpy(cpu_model, frames[0].cpu().numpy())["verts"][:, 1]
+    out["cloth_links"] = dict(links_agree(links, cpu_links, y), skirt_y=skirt_y)
     return out
 
 
@@ -2329,8 +2574,10 @@ def main() -> int:
     emit("train_service", **service_train)
     zoo = zoo_phase(device)
     emit("zoo", **zoo)
-    pre = preprocess_phase(device)
+    pre, crops = preprocess_phase(device)
     emit("preprocess_2d", **pre)
+    pre3 = preprocess_3d_phase(device, crops)
+    emit("preprocess_3d", **pre3)
 
     # launches: K1-K3 on the main path's run, K4 on the table route's
     launches = dict(result["launches"], raster_flows_table=table["launches"]["raster_flows_table"])
@@ -2347,8 +2594,9 @@ def main() -> int:
         t: v["k3_launches_per_step"] for t, v in zoo["trainers"].items()}
     kernels["raster_fim"]["launches_per_zoo_eval_step"] = {
         t: v["k3_launches_per_eval"] for t, v in zoo["trainers"].items()}
-    for name in kernels:  # preprocessing part 1 runs none of the four
+    for name in kernels:  # preprocessing part 1 runs none of the four; part 2 runs K3
         kernels[name]["launches_preprocess_2d"] = pre["launches"][name]
+        kernels[name]["launches_preprocess_3d"] = pre3["launches"][name]
     line = {"kernels": [
         {"name": name, "replaces": REPLACES[name], "launches": launches[name],
          "ms": v["wrapper_ms"], **v}  # `ms`: the whole call, as a user of the wrapper pays it

@@ -25,8 +25,39 @@ NUM_FACES = 13776
 NUM_JOINTS_SMPL = 24
 NUM_SHAPE = 10
 NUM_COCOPLUS_JOINTS = 19
+THETA_DIM = 85  # 3 cam + 72 pose + 10 shape
+THETA_DIM_HAND = 156 + 3 + 10  # an SMPL-H theta (156-dim pose)
 
 Device = Union[str, torch.device]
+
+
+class KinematicChain(NamedTuple):
+    """The kinematic tree's index tensors, built once on the model's device so
+    that the LBS indexes with device tensors and never copies an index from
+    the host (each such copy is a host sync on a CUDA device).
+
+    parents: (J,) int64; levels: one (joint ids, their parents' ids) pair of
+    int64 tensors per depth of the tree, root excluded; bottom: (4,) f32 row
+    (0, 0, 0, 1) of the homogeneous transforms.
+    """
+
+    parents: torch.Tensor
+    levels: tuple
+    bottom: torch.Tensor
+
+
+def _kinematic_chain(parents: np.ndarray, device: Device) -> KinematicChain:
+    J = parents.shape[0]
+    depth = np.zeros(J, np.int64)
+    for j in range(1, J):
+        depth[j] = depth[parents[j]] + 1
+    idx = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    levels = []
+    for d in range(1, int(depth.max()) + 1):
+        ids = np.nonzero(depth == d)[0]
+        levels.append((idx(ids), idx(parents[ids])))
+    return KinematicChain(parents=idx(parents), levels=tuple(levels),
+                          bottom=torch.tensor([0.0, 0.0, 0.0, 1.0], device=device))
 
 
 class SMPLModel(NamedTuple):
@@ -35,8 +66,8 @@ class SMPLModel(NamedTuple):
     v_template: (V, 3); shapedirs: (V, 3, 10); posedirs: (V, 3, 9*(J-1));
     j_regressor: (J, V); lbs_weights: (V, J); joint_regressor: (19, V);
     faces: (F, 3) int64; hands_mean: (pose_dim - 66,) (empty for SMPL).
-    parents: (J,) numpy int32 — the kinematic tree is walked in Python, so it
-    stays on the host.
+    parents: (J,) numpy int32, the kinematic tree on the host; chain: the
+    same tree as index tensors on the model's device.
     """
 
     v_template: torch.Tensor
@@ -48,6 +79,7 @@ class SMPLModel(NamedTuple):
     joint_regressor: torch.Tensor
     faces: torch.Tensor
     hands_mean: torch.Tensor
+    chain: KinematicChain
 
     @property
     def n_joints(self) -> int:
@@ -71,6 +103,7 @@ def _to_model(device: Device, *, v_template, shapedirs, posedirs, j_regressor,
         joint_regressor=f32(joint_regressor),
         faces=torch.as_tensor(np.asarray(faces, np.int64), device=device),
         hands_mean=f32(hands_mean),
+        chain=_kinematic_chain(np.asarray(parents, np.int32), device),
     )
 
 
@@ -344,7 +377,7 @@ def resolve_body_model(opt=None, device: Device = "cuda") -> SMPLModel:
 
 
 def _rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
-                           parents: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+                           chain: KinematicChain) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward-kinematics chain. rot_mats: (N, J, 3, 3); joints: (N, J, 3).
 
     Returns posed joint locations (N, J, 3) and relative vertex transforms
@@ -352,21 +385,16 @@ def _rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
     walked level by level (the SMPL tree is about 8 deep), as in the JAX twin.
     """
     N, J = joints.shape[0], joints.shape[1]
-    rel = joints - joints[:, parents.astype(np.int64)]
+    rel = joints - joints[:, chain.parents]
     rel[:, 0] = joints[:, 0]
 
     top = torch.cat([rot_mats, rel[..., None]], dim=-1)  # (N, J, 3, 4)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot_mats.dtype,
-                          device=rot_mats.device).expand(N, J, 1, 4)
+    bottom = chain.bottom.to(rot_mats.dtype).expand(N, J, 1, 4)
     locals_T = torch.cat([top, bottom], dim=-2)  # (N, J, 4, 4)
 
-    depth = np.zeros(J, np.int64)
-    for j in range(1, J):
-        depth[j] = depth[parents[j]] + 1
     A = locals_T.clone()
-    for d in range(1, int(depth.max()) + 1):
-        ids = np.nonzero(depth == d)[0]
-        A[:, ids] = A[:, parents[ids].astype(np.int64)] @ locals_T[:, ids]
+    for ids, par in chain.levels:
+        A[:, ids] = A[:, par] @ locals_T[:, ids]
 
     posed_joints = A[..., :3, 3].clone()
     correction = torch.einsum("njab,njb->nja", A[..., :3, :3], joints)
@@ -402,7 +430,20 @@ def lbs(
         pose = torch.cat([pose[..., :66], hands], dim=-1)
 
     rot = rodrigues(pose.reshape(N, J, 3))  # (N, J, 3, 3)
+    return lbs_from_rot(model, shape, rot, offsets, links_ids)
 
+
+def lbs_from_rot(
+    model: SMPLModel,
+    shape: torch.Tensor,
+    rot: torch.Tensor,
+    offsets: torch.Tensor | float = 0.0,
+    links_ids: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`lbs` with the per-joint rotation matrices rot (N, J, 3, 3) already
+    computed: the entry for paths that predict rotations directly (SPIN's
+    rot6d output), which need not pass through the axis-angle round trip."""
+    N = rot.shape[0]
     v_shaped = model.v_template + torch.einsum("vds,ns->nvd", model.shapedirs, shape)
     joints = torch.einsum("jv,nvd->njd", model.j_regressor, v_shaped)
     eye = torch.eye(3, dtype=rot.dtype, device=rot.device)
@@ -420,7 +461,7 @@ def lbs(
         v_posed = v_posed.clone()
         v_posed[:, src] = replacement
 
-    posed_joints, A = _rigid_transform_chain(rot, joints, model.parents)
+    posed_joints, A = _rigid_transform_chain(rot, joints, model.chain)
 
     T = torch.einsum("vj,njab->nvab", model.lbs_weights, A)  # (N, V, 4, 4)
     v_h = torch.cat([v_posed, torch.ones_like(v_posed[..., :1])], dim=-1)
@@ -457,3 +498,12 @@ def get_details(
     j2d = batch_orth_proj_idrot(j3d, cam)
     return {"theta": theta, "cam": cam, "pose": pose, "shape": shape,
             "verts": verts, "j3d": j3d, "j2d": j2d}
+
+
+def pad_theta_with_hands(theta: torch.Tensor, model: SMPLModel) -> torch.Tensor:
+    """85-dim theta (N, 85) -> (N, 3 + pose_dim + 10) with the model's mean
+    hand pose in place of SMPL's two hand joints (`add_hands_params_to_smpl`)."""
+    n = theta.shape[0]
+    cam, pose, shape = theta[:, :3], theta[:, 3:75], theta[:, 75:]
+    hands = model.hands_mean.expand(n, model.hands_mean.shape[0])
+    return torch.cat([cam, pose[:, :66], hands, shape], dim=1)

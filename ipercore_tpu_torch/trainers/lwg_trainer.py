@@ -121,11 +121,16 @@ MAX_CONSECUTIVE_ERRORS = 100_000
 
 
 class Adam(NamedTuple):
-    """optax's clip_by_global_norm(grad_clip) -> adam(lr, b1=B1, b2=B2,
-    eps=EPS) -> apply_if_finite(MAX_CONSECUTIVE_ERRORS), updates applied."""
+    """optax's clip_by_global_norm(grad_clip) -> adam(lr, b1, b2=B2, eps=EPS) ->
+    apply_if_finite(MAX_CONSECUTIVE_ERRORS), updates applied. The defaults are
+    the trainers' chain; `Adam(lr, grad_clip=0, b1=0.9, skip_nonfinite=False)`
+    is a plain `optax.adam(lr)` (no clip, no skipped steps), which the 3D fits
+    of preprocessing run."""
 
     lr: Union[float, Callable[[torch.Tensor], torch.Tensor]]
     grad_clip: float = 10.0
+    b1: float = B1
+    skip_nonfinite: bool = True
 
     def init(self, params: Params) -> AdamState:
         dev = next(iter(params.values())).device
@@ -142,13 +147,15 @@ class Adam(NamedTuple):
         p = [params[k] for k in names]
         mu = [state.mu[k] for k in names]
         nu = [state.nu[k] for k in names]
-
-        # apply_if_finite: every gradient finite (the largest magnitude is
-        # NaN or inf otherwise)
-        finite = torch.stack(torch._foreach_norm(g, float("inf"))).isfinite().all()
+        b1, b2 = self.b1, B2
         one = torch.ones_like(state.count)
-        notfinite_count = torch.where(finite, torch.zeros_like(state.count), state.notfinite_count + one)
-        accept = finite | (notfinite_count > MAX_CONSECUTIVE_ERRORS)
+
+        if self.skip_nonfinite:
+            # apply_if_finite: every gradient finite (the largest magnitude is
+            # NaN or inf otherwise)
+            finite = torch.stack(torch._foreach_norm(g, float("inf"))).isfinite().all()
+            notfinite_count = torch.where(finite, torch.zeros_like(state.count), state.notfinite_count + one)
+            accept = finite | (notfinite_count > MAX_CONSECUTIVE_ERRORS)
 
         if self.grad_clip and self.grad_clip > 0:
             # clip_by_global_norm: t kept while the norm is below the limit,
@@ -160,18 +167,21 @@ class Adam(NamedTuple):
                                                   torch.full_like(norm, self.grad_clip)))
 
         # scale_by_adam, in optax's order
-        mu_new = torch._foreach_add(torch._foreach_mul(g, 1 - B1), torch._foreach_mul(mu, B1))
-        nu_new = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - B2),
-                                    torch._foreach_mul(nu, B2))
+        mu_new = torch._foreach_add(torch._foreach_mul(g, 1 - b1), torch._foreach_mul(mu, b1))
+        nu_new = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
+                                    torch._foreach_mul(nu, b2))
         count_inc = state.count + one
-        mu_hat = torch._foreach_div(mu_new, 1 - B1 ** count_inc.to(torch.float32))
-        nu_hat = torch._foreach_div(nu_new, 1 - B2 ** count_inc.to(torch.float32))
+        mu_hat = torch._foreach_div(mu_new, 1 - b1 ** count_inc.to(torch.float32))
+        nu_hat = torch._foreach_div(nu_new, 1 - b2 ** count_inc.to(torch.float32))
         upd = torch._foreach_div(mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), EPS))
         # scale_by_learning_rate (a schedule reads the count before this step)
         lr = self.lr(state.count) if callable(self.lr) else self.lr
         upd = torch._foreach_mul(upd, -lr)
         p_new = torch._foreach_add(p, upd)
 
+        if not self.skip_nonfinite:
+            return dict(zip(names, p_new)), state._replace(
+                count=count_inc, mu=dict(zip(names, mu_new)), nu=dict(zip(names, nu_new)))
         pick = lambda new, old: {k: torch.where(accept, a, b) for k, a, b in zip(names, new, old)}
         new_state = AdamState(
             count=torch.where(accept, count_inc, state.count), mu=pick(mu_new, mu), nu=pick(nu_new, nu),

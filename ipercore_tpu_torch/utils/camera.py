@@ -1,9 +1,11 @@
 """Weak-perspective camera strategies (twin of `ipercore_tpu/utils/camera.py`:
-`cam_swap`, `get_checkpoints`, `get_jump_mask`, `stabilize_smpls`). Numpy in,
-numpy out: these run once per sequence on the host."""
+`cam_swap`, `get_checkpoints`, `get_jump_mask`, `stabilize_smpls`, which are
+numpy in, numpy out and run once per sequence on the host; and the crop
+camera conversions `cam_init2orig` / `cam_norm`, tensor in, tensor out)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def cam_swap(src_cam, ref_cam, first_cam=None, strategy: str = "smooth") -> np.ndarray:
@@ -106,3 +108,22 @@ def stabilize_smpls(smpls: np.ndarray, foot_y: np.ndarray) -> np.ndarray:
     smpls[:, 2] = new_cam_y
     smpls[:, 75:] = smpls[0:1, 75:]
     return smpls
+
+
+def cam_init2orig(cam, scale, start_pt, N: int = 224) -> torch.Tensor:
+    """HMR crop camera -> original-image camera (`cam_init2orig:216`).
+
+    Args: cam (bs, 3); scale (bs, 1) resize_h / orig_h; start_pt (bs, 2).
+    Tensors or arrays; the result is a tensor on `cam`'s device."""
+    cam = torch.as_tensor(cam)
+    scale = torch.as_tensor(scale, device=cam.device)
+    start_pt = torch.as_tensor(start_pt, device=cam.device)
+    cam_crop = torch.cat([N * cam[:, 0:1] * 0.5, cam[:, 1:] + (2.0 / cam[:, 0:1]) * 0.5], dim=1)
+    return torch.cat([cam_crop[:, 0:1] / scale,
+                      cam_crop[:, 1:] + (start_pt - N) / cam_crop[:, 0:1]], dim=1)
+
+
+def cam_norm(cam, N) -> torch.Tensor:
+    """Original-image camera -> normalized [-1, 1] camera (`cam_norm:244`)."""
+    cam = torch.as_tensor(cam)
+    return torch.cat([cam[:, 0:1] * (2.0 / N), cam[:, 1:] - N / (2 * cam[:, 0:1])], dim=1)

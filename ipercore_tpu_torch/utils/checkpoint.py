@@ -197,8 +197,9 @@ def seeded_flat_params(model, seed: int = 0) -> dict[str, np.ndarray]:
     0.02 for the 3x3x256 convolutions that make up most of the generator and
     keeps activations at unit scale through its depth; biases are zero; PReLU
     slopes are 0.25; a frozen batch norm starts at scale 1, mean 0, variance
-    1. Only kernels draw from `np.random.default_rng(seed)`, in sorted key
-    order.
+    1; a module's `SEED_VALUES` ({parameter name: value}) name the constants
+    its Flax twin initializes to (SPIN's `init_cam`). Only kernels draw from
+    `np.random.default_rng(seed)`, in sorted key order.
     """
     if not isinstance(model, nn.Module):
         from ipercore_tpu_torch.models.networks.generators import LWBGenerator
@@ -218,6 +219,8 @@ def seeded_flat_params(model, seed: int = 0) -> dict[str, np.ndarray]:
         for leaf in ("bn_scale", "bn_var"):  # a batch norm held by its conv (Inception)
             if hasattr(m, leaf):
                 fill[pre + leaf] = 1.0
+        for leaf, value in getattr(m, "SEED_VALUES", {}).items():
+            fill[pre + leaf] = value
     rng = np.random.default_rng(seed)
     entries = []
     for k, v in model.state_dict().items():

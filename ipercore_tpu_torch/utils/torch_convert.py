@@ -4,8 +4,8 @@ The port's copy of `ipercore_tpu/utils/torch_convert.py` for the networks the
 port has: the generator (`convert_generator`, the reference's
 `AttLWB-SPADE_id_G_*.pth` layout), the discriminators, the VGG19 / VGG16 /
 VGG11 perceptual nets, Sphere20a and SENet-50 face nets, InceptionV3 (FID),
-LPIPS(lin), and the 2D pose nets OpenPose Body-25 (`convert_openpose`) and
-Mobilenet OpenPose (`convert_mobilenet_openpose`). Each takes a state dict (torch tensors or numpy arrays,
+LPIPS(lin), the 2D pose nets OpenPose Body-25 (`convert_openpose`) and
+Mobilenet OpenPose (`convert_mobilenet_openpose`), and SPIN (`convert_spin`). Each takes a state dict (torch tensors or numpy arrays,
 `module.` prefixes allowed) and `like`, the flat parameters to fill
 (`{flax key: array}`, e.g. `seeded_flat_params(net)`, or a network of the
 port, whose own parameters are then the starting values). It returns
@@ -545,4 +545,42 @@ def convert_mobilenet_openpose(sd: Mapping, like: Like) -> tuple[dict[str, np.nd
         _put_conv(sd, params, f"refinement_stages.{r}.pafs.0.0", ref + ["paf0"], report)
         _put_conv(sd, params, f"refinement_stages.{r}.pafs.1.0", ref + ["paf1"], report)
         r += 1
+    return _finish(tree, params), report
+
+
+# ---------------------------------------------------------------------------
+# 3D pose (preprocessing)
+# ---------------------------------------------------------------------------
+
+def convert_spin(sd: Mapping, like: Like) -> tuple[dict[str, np.ndarray], list[str]]:
+    """SPIN `model_checkpoint.pt` state dict -> `tools/pose3d.SPINNet`.
+
+    Torch layout (`spin/network.py:52-120`): conv1/bn1, layer{1-4}.{b}.
+    {conv,bn}{1-3} + downsample.{0,1}, fc1/fc2/decpose/decshape/deccam,
+    init_{pose,shape,cam} buffers.
+    """
+    sd = _normalize_sd(sd)
+    tree, params = _mutable_like(like)
+    report: list[str] = []
+    bk = ["backbone"]
+
+    _put_conv(sd, params, "conv1", bk + ["conv1"], report)
+    _put_bn(sd, params, "bn1", bk + ["bn1"], report)
+    for l, blocks in enumerate((3, 4, 6, 3), start=1):
+        for b in range(blocks):
+            t = f"layer{l}.{b}"
+            f = bk + [f"layer{l}_{b}"]
+            for j in (1, 2, 3):
+                _put_conv(sd, params, f"{t}.conv{j}", f + [f"conv{j}"], report)
+                _put_bn(sd, params, f"{t}.bn{j}", f + [f"bn{j}"], report)
+            if f"{t}.downsample.0.weight" in sd:
+                _put_conv(sd, params, f"{t}.downsample.0", f + ["downsample_conv"], report)
+                _put_bn(sd, params, f"{t}.downsample.1", f + ["downsample_bn"], report)
+    for name in ("fc1", "fc2", "decpose", "decshape", "deccam"):
+        _put_dense(sd, params, name, ["regressor", name], report)
+    for name in ("init_pose", "init_shape", "init_cam"):
+        if name in sd:
+            _assign(params, [name], sd[name], report)
+        else:
+            report.append("ABSENT " + name)
     return _finish(tree, params), report

@@ -59,7 +59,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "ipercore_tpu_torch.models.networks.inception", "ipercore_tpu_torch.utils.native",
               "ipercore_tpu_torch.tools.detection", "ipercore_tpu_torch.tools.pose2d",
               "ipercore_tpu_torch.tools.pose2d_mobilenet", "ipercore_tpu_torch.tools.mattors",
-              "ipercore_tpu_torch.tools.preprocessor", "ipercore_tpu_torch.utils.keypoints"):
+              "ipercore_tpu_torch.tools.preprocessor", "ipercore_tpu_torch.utils.keypoints",
+              "ipercore_tpu_torch.tools.pose3d", "ipercore_tpu_torch.tools.deformers"):
         assert m in names
     code = (
         "import importlib, sys\n"
@@ -158,6 +159,10 @@ ENTRY_POINTS = [
     ("ipercore_tpu_torch.tools.detection", "pose_person_boxes"),
     ("ipercore_tpu_torch.tools.detection", "detect_person_boxes"),
     ("ipercore_tpu_torch.tools.preprocessor", "process_crop_img"),
+    ("ipercore_tpu_torch.tools.pose3d", "SPINRunner"),
+    ("ipercore_tpu_torch.tools.pose3d", "load_gmm_prior"),
+    ("ipercore_tpu_torch.tools.pose3d", "fit_gmm_prior"),
+    ("ipercore_tpu_torch.tools.deformers", "run_sil2smpl_offsets"),
 ]
 
 
