@@ -29,7 +29,16 @@ versions), which runs none of the four kernels; and preprocessing part 2
 (`preprocess_3d`: SPIN on those crops, multi-hypothesis SMPLify with the GMM
 pose prior, the silhouette offset fit against K3's silhouettes of a wider
 body, cloth links; each on the card against the CPU, K3 bit-equal to its
-plain version on the phase's batches).
+plain version on the phase's batches); preprocessing part 3
+(`preprocess_mattes`: on those crops, the SMPL silhouettes through K3, the
+GCA mattor with the fused contextual attention, held against the plain
+attention on the real bottleneck, the SCHP parser, the inpaintors with and
+without super-resolution; each on the card against the CPU); and the
+`pipeline`: a raw clip of PNG frames through the three stages of
+`run_imitator` (preprocess, personalize, imitate), then `run_viewer` and
+`run_swapper`, with K1-K3 launched, the body in the frame (SPIN's camera
+head zeroed), the offsets moved, the imitated frames changing, and K3
+bit-equal to its plain version on the pipeline's batches.
 Reads no weight file: every network is seeded (the GMM pose prior is data,
 tracked in the repository).
 Every phase prints one JSON line; any failed check raises, so the exit code
@@ -2007,7 +2016,7 @@ def conv_flops(net: torch.nn.Module, x: torch.Tensor) -> float:
     return total[0]
 
 
-def agreement(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+def agreement(got: torch.Tensor, want: torch.Tensor, what: str, phase: str = "preprocess_2d") -> dict:
     """`got` (card) against `want` (CPU): the share within 1e-3 (>= 99.5 %
     required) and the largest error relative to the largest value (<= 1e-3
     required: seeded nets give small outputs, where 1e-3 alone says little)."""
@@ -2016,7 +2025,7 @@ def agreement(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
            "max_abs": float(want.abs().max())}
     out["max_rel_err"] = out["max_abs_err"] / max(out["max_abs"], 1e-30)
     check(out["close_fraction"] >= 0.995 and out["max_rel_err"] <= 1e-3,
-          f"preprocess_2d: {what} on the card against the CPU: {out}")
+          f"{phase}: {what} on the card against the CPU: {out}")
     return out
 
 
@@ -2286,10 +2295,12 @@ def preprocess_phase(device) -> dict:
         check(vid.png_rows(sub)[0] == vid.filter_sub_plain(img.reshape(SIZE, -1), 3),
               "preprocess_2d: native write_png rows differ from Sub filtering in Python")
     out["png_decode_ms"] = {"native": native_ms, "python_loop": plain_ms, "size": SIZE, "filter": "paeth"}
-    return out, crops
+    # for the later phases: the crops, the calibrated segmenter, the raw frames they use
+    return out, {"crops": crops, "seg_flat": seg_flat, "frames": frames[:PIPE_SRC + PIPE_REF].copy()}
 
 
 SPIN_BATCH, SMPLIFY_FRAMES, DEFORM_FRAMES, MASK_SIZE = 32, 48, 4, 512
+DEFORM_STEPS = 200  # the JAX test's settings; the pipeline runs the 500-step defaults
 
 
 def natural_sequence(model, n: int, seed: int = 15):
@@ -2353,11 +2364,12 @@ def preprocess_3d_phase(device, crops: np.ndarray) -> dict:
     `digital_deform` run it: SPIN (seeded, at its published width) on the 48
     crops of `preprocess_2d` resized to 224², multi-hypothesis SMPLify from
     that theta against the keypoints of a seeded natural sequence with the
-    GMM prior, the silhouette offset fit at its defaults against K3's hard
-    silhouettes of a wider body on 4 of the fitted frames, then the fit at
-    the JAX test's settings with its IoU through K3, and cloth links. Then
-    each part on the card against the CPU, K3 against its plain version on
-    this phase's batches, and the times."""
+    GMM prior, the silhouette offset fit at the JAX test's settings (200
+    steps; the pipeline phase runs it at its 500-step defaults) against K3's
+    hard silhouettes of a wider body on 4 of the fitted frames, with its IoU
+    through K3, and cloth links. Then each part on the card against the CPU,
+    K3 against its plain version on this phase's batches, and the times.
+    Returns the line and SMPLify's 48 fitted thetas."""
     import types
 
     from ipercore_tpu_torch.models import smpl as smpl_mod
@@ -2394,13 +2406,13 @@ def preprocess_3d_phase(device, crops: np.ndarray) -> dict:
     obs, obs_fv = hard_silhouettes(model, frames, wide, MASK_SIZE)
     info = types.SimpleNamespace(get_array={"smpls": frames.cpu().numpy(),
                                             "masks": (1.0 - obs)[..., None].cpu().numpy()}.get)
+    # the fit at the JAX test's settings; the pipeline phase runs it at its defaults
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    offsets = dfm.run_sil2smpl_offsets({}, info, device=device)
+    fitted = dfm.run_sil2smpl_offsets({}, info, n_steps=DEFORM_STEPS, lr=2e-3, reg=1.0, device=device)
     torch.cuda.synchronize()
     deform_s = time.perf_counter() - t0
     deform_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    fitted = dfm.run_sil2smpl_offsets({}, info, n_steps=200, lr=2e-3, reg=1.0, device=device)
     sil_fit, fit_fv = hard_silhouettes(model, frames, torch.as_tensor(fitted, device=device), MASK_SIZE)
     sil_zero, zero_fv = hard_silhouettes(model, frames, torch.zeros_like(wide), MASK_SIZE)
     legs_v = model.v_template.cpu().numpy()
@@ -2474,7 +2486,7 @@ def preprocess_3d_phase(device, crops: np.ndarray) -> dict:
                host_syncs_per_step=(syncs[1] - syncs[0]) / 5, reproj_err={"init": e_init, "fit": e_fit})
 
     # --- the silhouette offset fit --------------------------------------------
-    check(np.isfinite(offsets).all() and np.isfinite(fitted).all(), "preprocess_3d: offsets")
+    check(np.isfinite(fitted).all(), "preprocess_3d: offsets")
     iou = lambda a, b: float((a * b).sum() / (a + b - a * b).sum())
     area = lambda m: float(m.sum())
     iou_fit, iou_zero = iou(sil_fit, obs), iou(sil_zero, obs)
@@ -2496,14 +2508,13 @@ def preprocess_3d_phase(device, crops: np.ndarray) -> dict:
     grad_rel = float((gk - gc).norm() / gc.norm())
     check(loss_err <= 1e-5 and grad_rel <= 0.01,
           f"preprocess_3d: silhouette loss card against CPU {loss_err}, gradient {grad_rel}")
-    out["deform"] = {"frames": DEFORM_FRAMES, "steps": 500, "size": 128, "mask_size": MASK_SIZE,
+    out["deform"] = {"frames": DEFORM_FRAMES, "steps": DEFORM_STEPS, "size": 128, "mask_size": MASK_SIZE,
                      "peak_memory_gib": deform_peak, "host_syncs_per_step": (per_step[1] - per_step[0]) / 2,
                      "iou_fitted": iou_fit, "iou_unfitted": iou_zero,
                      "area_observed": a_obs, "area_fitted": a_fit, "area_unfitted": a_zero,
-                     "offsets_max_abs_defaults": float(np.abs(offsets).max()),
                      "offsets_max_abs_test_settings": float(np.abs(fitted).max()),
                      "card_vs_cpu_loss_rel_err": loss_err, "card_vs_cpu_grad_rel_l2": grad_rel}
-    out.update(deform_s=deform_s, deform_ms_per_step=deform_s * 1e3 / 500, peak_memory_gib=deform_peak)
+    out.update(deform_s=deform_s, deform_ms_per_step=deform_s * 1e3 / DEFORM_STEPS, peak_memory_gib=deform_peak)
     check(deform_peak < 3.0, f"preprocess_3d: the deform fit peaked at {deform_peak} GiB")
 
     # --- K3 against its plain version on this phase's batches ------------------
@@ -2518,6 +2529,464 @@ def preprocess_3d_phase(device, crops: np.ndarray) -> dict:
     cpu_links = dfm.smpl_link(cpu_model, frames[0].cpu().numpy(), skirt_y, leg_ids=legs)
     y = dfm._posed_numpy(cpu_model, frames[0].cpu().numpy())["verts"][:, 1]
     out["cloth_links"] = dict(links_agree(links, cpu_links, y), skirt_y=skirt_y)
+    return out, theta
+
+
+# ---------------------------------------------------------------------------
+# preprocessing part 3: mattes, parsing, inpainting; then the pipeline
+# ---------------------------------------------------------------------------
+
+PIPE_SRC, PIPE_REF = 8, 16  # raw frames of the pipeline's source and reference
+INPAINT_CONTROL = 256
+
+
+def mattes_kind(key: str) -> str:
+    """`kernel_kind`, with the fused attention's kernels apart (PyTorch's
+    memory-efficient attention is a CUTLASS kernel, `fmha_cutlass*`)."""
+    name = key.lower()
+    if "fmha" in name or "attention" in name:
+        return "attention"
+    return kernel_kind(key)
+
+
+def device_ms_by_kind(fn) -> dict:
+    kinds = {}
+    for us, key in kernel_times(fn):
+        k = mattes_kind(key)
+        kinds[k] = kinds.get(k, 0.0) + us / 1e3
+    kinds["busy"] = sum(kinds.values())
+    return kinds
+
+
+def peak_gib_of(fn) -> tuple:
+    """(fn(), GiB that `fn` allocated at its peak above what was allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+@contextlib.contextmanager
+def leg_asset(model):
+    """`smpl_part_info.json` with the body's leg vertices (split by x, as
+    `preprocess_3d` splits them) in a temporary directory named by
+    `IPERCORE_TPU_ASSETS`, for the cloth links; restored after."""
+    v = model.v_template.cpu().numpy()
+    low = v[:, 1] > 0.3
+    legs = {"02_left_leg": {"vertex": np.nonzero(low & (v[:, 0] > 0.02))[0].tolist()},
+            "03_right_leg": {"vertex": np.nonzero(low & (v[:, 0] < -0.02))[0].tolist()}}
+    before = os.environ.get("IPERCORE_TPU_ASSETS")
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "smpl_part_info.json"), "w") as f:
+            json.dump(legs, f)
+        os.environ["IPERCORE_TPU_ASSETS"] = d
+        try:
+            yield
+        finally:
+            if before is None:
+                os.environ.pop("IPERCORE_TPU_ASSETS", None)
+            else:
+                os.environ["IPERCORE_TPU_ASSETS"] = before
+
+
+def preprocess_mattes_phase(device, clip: dict, theta: torch.Tensor) -> dict:
+    """Preprocessing part 3 as `Preprocessor.execute` stages 1.4 and 1.6 and
+    `digital_deform` run it, on `preprocess_2d`'s 48 crops at 512^2: the SMPL
+    silhouettes of `preprocess_3d`'s 48 fits through K3 at 256^2 (the
+    fallback mask); `HumanMattor.run` with the calibrated segmenter and a
+    seeded `GCAMattingRefiner` at published widths (seed 8), whose contextual
+    attention takes the fused route; `SchpParser` at published width (seed
+    9) and `find_cloth_links_schp` on frame 0; `SuperResolutionInpaintor`
+    (gated 10, refine 11, RRDBNet 23 blocks 12, control 256) on the mean
+    background with the person hole at 512^2 (no SR) and on one 1080x1920
+    frame (with SR). Then the fused attention against the plain one on 2
+    frames of the real bottleneck, each network on the card against the CPU,
+    K3 against its plain version on the silhouette batches, and the times."""
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.ops import attention as att
+    from ipercore_tpu_torch.ops import rasterizer as rz
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+    from ipercore_tpu_torch.tools import deformers as dfm
+    from ipercore_tpu_torch.tools import inpaintors as inp
+    from ipercore_tpu_torch.tools import mattors as mt
+    from ipercore_tpu_torch.tools import parsers as ps
+    from ipercore_tpu_torch.tools.preprocessor import Preprocessor, background_visibility
+    from ipercore_tpu_torch.utils.checkpoint import seeded_flat_params
+
+    crops = clip["crops"]
+    n = len(crops)
+    theta = theta.cpu().numpy()
+    model = smpl_mod.template_model(device=device)
+    pre = Preprocessor(image_size=CROP_SIZE, body_model=model, device=device)
+    mat_flat = seeded_flat_params(mt.GCAMattingRefiner(), mt.MATTING_SEED)
+    mattor = mt.HumanMattor(seg_params=clip["seg_flat"], mat_params=mat_flat, device=device)
+    check(mattor.trained and isinstance(mattor.mat, mt.GCAMattingRefiner), "preprocess_mattes: the mattor")
+    parser = ps.SchpParser(device=device)
+    inp_flats = {"inpaint_params": seeded_flat_params(inp.GatedInpaintor(), inp.INPAINT_SEED),
+                 "refine_params": seeded_flat_params(inp.RefineInpaintor(), inp.REFINE_SEED),
+                 "sr_params": seeded_flat_params(inp.RRDBNet(), inp.SR_SEED)}
+    inpaintor = inp.SuperResolutionInpaintor(control_size=INPAINT_CONTROL, device=device, **inp_flats)
+    check(inpaintor.trained and inpaintor.refine_trained and inpaintor.sr_trained, "preprocess_mattes: inpaintor")
+    frame0 = clip["frames"][0]
+    person0 = person_masks(frame0[None])[0][..., None].astype(np.float32)
+    count = lambda net: sum(p.numel() for p in net.parameters())
+    out = {"frames": n, "size": CROP_SIZE, "parameters": {
+        "gca_refiner": count(mattor.mat), "schp": count(parser.net), "gated": count(inpaintor.net),
+        "refine": count(inpaintor.refine), "rrdbnet": count(inpaintor.sr)}}
+
+    # --- the main path, launch counts set to 0 just before it ---------------
+    zero_counts()
+    sil, sil_ms = once_ms(lambda: pre._smpl_silhouette(theta))
+    (alpha, mask), mattes_first_ms = once_ms(lambda: mattor.run(crops, fallback_mask=sil))
+    branches = dict(mattor.last_run)
+    labels, schp_first_ms = once_ms(lambda: parser.parse(crops))
+    vis = background_visibility(1.0 - alpha, sil, CROP_SIZE, device=device)
+    acc = (crops * vis).sum(0) / np.maximum(vis.sum(0), 1e-5)
+    hole = (vis.sum(0) < 0.5).astype(np.float32)
+    bg, bg_first_ms = once_ms(lambda: inpaintor.run_inpainting(acc, hole))
+    sr_bg, sr_first_ms = once_ms(lambda: inpaintor.run_inpainting(frame0, person0))
+    with leg_asset(model):
+        found, links = dfm.find_cloth_links_schp(parser, crops[0], theta[0], model)
+    out["launches"] = read_counts()
+    n_sil_chunks = -(-n // 16)
+    check(out["launches"]["raster_fim"] == n_sil_chunks and not any(
+        out["launches"][k] for k in ("raster_flows_csr", "grid_sample_nhwc", "raster_flows_table")),
+        f"preprocess_mattes: launches {out['launches']}")
+
+    check(sil.shape == (n, CROP_SIZE, CROP_SIZE, 1) and 0.01 < sil.mean() < 0.9, "preprocess_mattes: silhouettes")
+    check(alpha.shape == mask.shape == sil.shape and np.isfinite(alpha).all()
+          and alpha.min() >= 0 and alpha.max() <= 1, "preprocess_mattes: alpha")
+    check(labels.shape == (n, CROP_SIZE, CROP_SIZE) and labels.min() >= 0 and labels.max() < ps.LIP_NUM_CLASSES,
+          "preprocess_mattes: SCHP labels")
+    check(bg.shape == (CROP_SIZE, CROP_SIZE, 3) and np.isfinite(bg).all() and np.abs(bg).max() <= 1.0,
+          "preprocess_mattes: background")
+    check(sr_bg.shape == (CLIP_H, CLIP_W, 3) and np.isfinite(sr_bg).all() and np.abs(sr_bg).max() <= 1.0,
+          "preprocess_mattes: SR background")
+    iou = lambda a, b: float((a * b).sum() / max(float(np.maximum(a, b).sum()), 1.0))
+    out["branches"] = {"compact": branches["compact"], "use_band": branches["use_band"],
+                       "sub_batch": branches["sub_batch"], "compact_share": float(np.mean(branches["compact"])),
+                       "band_share": float(np.mean(branches["use_band"]))}
+    out["mask_iou_with_silhouette"] = iou(mask, sil)
+    out["hole_share_of_mean_background"] = float(hole.mean())
+    out["cloth_links_frame0"] = {"found": bool(found), "links": int(len(links)),
+                                 "skirt_dress_pixels": int(np.isin(labels[0], ps.LIP_TARGETS["skirt+dress"]).sum())}
+    out["label_shares"] = np.bincount(labels.reshape(-1), minlength=ps.LIP_NUM_CLASSES).tolist()
+
+    # --- the mattes: frames/s, device time by kind, memory, syncs ---------------
+    run = lambda: mattor.run(crops, fallback_mask=sil)
+    ms = cuda_ms(run, reps=2, warmup=1)
+    _, peak = peak_gib_of(run)
+    by_kind = device_ms_by_kind(run)
+    x0 = torch.as_tensor(crops[:1], device=device)
+    inp1 = torch.cat([x0, mt.generate_trimap(torch.as_tensor(mask[:1], device=device))], -1)
+    hw = (CROP_SIZE // 4) ** 2
+    att_flops = 2.0 * hw * hw * (9 * 128 + 128)
+    gca_flops = conv_flops(mattor.mat, inp1) + att_flops
+    out["mattes"] = {"ms": ms, "first_call_ms": mattes_first_ms, "chunk": 16, "sub_batch": branches["sub_batch"],
+                     "device_ms": by_kind, "device_idle_share": 1 - by_kind["busy"] / ms,
+                     "peak_memory_gib": peak, "estimated_bytes_per_pixel": mt.REFINER_BYTES_PER_PIXEL,
+                     "budget_gib": mt.REFINER_BUDGET_BYTES / 2 ** 30,
+                     "host_syncs_per_chunk": host_syncs(run) / n_sil_chunks,
+                     "gca_tflop_per_frame": gca_flops / 1e12, "attention_share_of_flop": att_flops / gca_flops,
+                     "silhouettes_ms": sil_ms}
+    out["mattes_frames_per_s"] = n / (ms / 1e3)
+    # the refiner's peak a frame (the slope between 2 and 4 frames a call), and
+    # the segmenter's on the chunk of 16: what the sub-batch estimate must cover
+    x16 = torch.as_tensor(crops[:16], device=device)
+    inp16 = torch.cat([x16, mt.generate_trimap(torch.as_tensor(mask[:16], device=device))], -1)
+    with torch.inference_mode():
+        g2, g4 = (peak_gib_of(lambda k=k: mattor.mat(inp16[:k]))[1] for k in (2, 4))
+        _, seg_peak = peak_gib_of(lambda: mattor.seg(x16))
+    measured = (g4 - g2) / 2 * 2 ** 30 / CROP_SIZE ** 2
+    out["mattes"].update(refiner_peak_gib_2_and_4_frames=[g2, g4], refiner_bytes_per_pixel=measured,
+                         segmenter_peak_gib_16_frames=seg_peak)
+    check(measured <= mt.REFINER_BYTES_PER_PIXEL,
+          f"preprocess_mattes: the refiner takes {measured} bytes a pixel, above the estimate "
+          f"{mt.REFINER_BYTES_PER_PIXEL} its sub-batch is sized by")
+
+    # --- the fused attention against the plain one, 2 frames of the bottleneck ---
+    caught = {}
+    hook = mattor.mat.gca.register_forward_hook(lambda m, args, res: caught.update(f=args[0], u=args[1]))
+    try:
+        mattor.run(crops[:2], fallback_mask=sil[:2])
+    finally:
+        hook.remove()
+    f, u = caught["f"], caught["u"]
+    check(f.shape == (2, CROP_SIZE // 4, CROP_SIZE // 4, 128) and 0 < float(u.mean()) < 1,
+          f"preprocess_mattes: the bottleneck {tuple(f.shape)}, unknown share {float(u.mean())}")
+    with torch.inference_mode():
+        fused, fused_peak = peak_gib_of(lambda: att.contextual_attention_fused(f, u))
+        plain, plain_peak = peak_gib_of(lambda: att.contextual_attention_plain(f, u))
+    err, scale = float((fused - plain).abs().max()), float(plain.abs().max())
+    affinity_gib = 2 * hw * hw * 4 / 2 ** 30
+    check(err <= 1e-4 * scale, f"preprocess_mattes: fused attention off the plain one by {err} (scale {scale})")
+    check(fused_peak < 0.25 * affinity_gib, f"preprocess_mattes: the fused attention peaked at {fused_peak} GiB")
+    with torch.inference_mode():
+        att_kernels = [k for _, k in sorted(kernel_times(lambda: att.contextual_attention_fused(f, u)), reverse=True)
+                       if mattes_kind(k) == "attention"]
+    check(bool(att_kernels), "preprocess_mattes: no memory-efficient attention kernel ran")
+    with torch.inference_mode():
+        fused_ms = cuda_ms(lambda: att.contextual_attention_fused(f, u), reps=5, warmup=1)
+        plain_ms = cuda_ms(lambda: att.contextual_attention_plain(f, u), reps=3, warmup=1)
+    out["attention"] = {"frames": 2, "hw": hw, "c": 128, "qk_dim": 9 * 128,
+                        "backend": "EFFICIENT_ATTENTION", "kernel": att_kernels[0][:90],
+                        "fused_ms": fused_ms, "plain_ms": plain_ms, "fused_peak_gib": fused_peak,
+                        "plain_peak_gib": plain_peak, "affinity_gib": affinity_gib,
+                        "max_abs_err": err, "max_abs": scale, "unknown_share": float(u.mean()),
+                        "fused_tflop_per_s": 2 * att_flops / (fused_ms / 1e3) / 1e12}
+
+    # --- SCHP -------------------------------------------------------------------
+    parse = lambda: parser.parse(crops)
+    schp_ms = cuda_ms(parse, reps=2, warmup=1)
+    _, schp_peak = peak_gib_of(parse)
+    x473 = torch.zeros((1, ps.LIP_INPUT_SIZE, ps.LIP_INPUT_SIZE, 3), device=device)
+    schp_flops = conv_flops(parser.net, x473) * n
+    out["schp"] = {"ms": schp_ms, "first_call_ms": schp_first_ms, "batch": 8, "peak_memory_gib": schp_peak,
+                   "gflop_per_frame": schp_flops / n / 1e9, "tflop_per_s": schp_flops / (schp_ms / 1e3) / 1e12,
+                   "device_ms": device_ms_by_kind(parse)}
+    out["schp_frames_per_s"] = n / (schp_ms / 1e3)
+
+    # --- the inpaintors: wall and device ms -------------------------------------
+    out["inpaint"] = {}
+    for name, fn, first in (("mean_background_512", lambda: inpaintor.run_inpainting(acc, hole), bg_first_ms),
+                            ("frame_1080x1920_sr", lambda: inpaintor.run_inpainting(frame0, person0), sr_first_ms)):
+        _, wall = once_ms(fn)
+        out["inpaint"][name] = {"wall_ms": wall, "first_call_ms": first, "device_ms": device_ms_by_kind(fn)}
+    out["inpaint"]["frame_1080x1920_sr"]["rrdbnet_input"] = [INPAINT_CONTROL, INPAINT_CONTROL]
+
+    # --- every network on the card against the CPU -----------------------------
+    checks = {}
+    cpu_mattor = mt.HumanMattor(seg_params=clip["seg_flat"], mat_params=mat_flat, device="cpu")
+    with torch.inference_mode():
+        checks["gca_refiner"] = agreement(mattor.mat(inp1), cpu_mattor.mat(inp1.cpu()), "GCA refiner",
+                                          "preprocess_mattes")
+    checks["segmenter"] = agreement(torch.sigmoid(mattor.segment(crops[:1])),
+                                    torch.sigmoid(cpu_mattor.segment(crops[:1])), "segmenter", "preprocess_mattes")
+    cpu_parser = ps.SchpParser(params=parser.params, device="cpu")
+    lk, lc = parser.logits(crops[:1]), cpu_parser.logits(crops[:1])
+    checks["schp_logits"] = agreement(lk, lc, "SCHP logits", "preprocess_mattes")
+    checks["schp_label_agreement"] = float((lk.argmax(-1).cpu() == lc.argmax(-1)).float().mean())
+    check(checks["schp_label_agreement"] >= 0.995, f"preprocess_mattes: SCHP labels {checks['schp_label_agreement']}")
+    cpu_inp = inp.SuperResolutionInpaintor(control_size=INPAINT_CONTROL, device="cpu", **inp_flats)
+    checks["inpaint_mean_background"] = agreement(torch.as_tensor(bg), torch.as_tensor(
+        cpu_inp.run_inpainting(acc, hole)), "gated + refine inpainting", "preprocess_mattes")
+    x64 = torch.as_tensor(np.random.RandomState(17).rand(1, 64, 64, 3).astype(np.float32))
+    with torch.inference_mode():
+        checks["rrdbnet_64"] = agreement(inpaintor.sr(x64.to(device)), cpu_inp.sr(x64), "RRDBNet", "preprocess_mattes")
+    out["checks"] = checks
+
+    # --- K3 against its plain version on the silhouette batches -----------------
+    loads, k3 = [], {}
+    for i in range(0, n, 16):
+        d = smpl_mod.get_details(model, torch.as_tensor(theta[i:i + 16], device=device))
+        fv = rz.verts_to_faces(rz.project_verts(d["verts"], d["cam"]), model.faces).contiguous()
+        got, ref = rc.raster_fim(fv, 256), rc.raster_fim_plain(fv, 256)
+        raster_agreement(got.fim, ref.fim, got.wim, ref.wim, f"raster_fim/silhouettes {i}", bit_equal=True)
+        loads.append(rc.bin_faces_table(fv, 256, TABLE_K, with_stats=True).stats["max_tile_load"])
+    k3["silhouette_batches"] = {"chunks": len(loads), "size": 256, "bit_equal": True,
+                                "max_tile_load_8x128": max(loads), "jax_tile_cap": TABLE_K,
+                                "jax_would_drop_faces": max(loads) > TABLE_K}
+    out["k3"] = k3
+    return out
+
+
+def framed_spin_params(spin_flat: dict) -> dict:
+    """The seeded SPIN with its camera head (`deccam`) zeroed, so that every
+    frame's camera is SPIN's initial (0.9, 0, 0) and the body lies in the
+    middle of the crop: the seeded head's camera puts the body outside the
+    crop, where the fallback silhouettes are empty and the offset fit has no
+    gradient. The pose and shape heads stay seeded."""
+    framed = dict(spin_flat)
+    for k in ("params/regressor/deccam/kernel", "params/regressor/deccam/bias"):
+        framed[k] = np.zeros_like(spin_flat[k])
+    return framed
+
+
+def pipeline_k3_batches(model, infos, find_front_size: int) -> dict:
+    """K3 against its plain version, bit for bit, on the batches the
+    pipeline rastered: each input's written smpls in chunks of 32 at the
+    find-front size (which also holds the silhouettes' chunks of 16 at
+    256^2: 8 and 16 frames fit in one chunk) and in chunks of 8 at 512^2 (the
+    overlay); with the densest 8x128 tile of each size."""
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.ops import rasterizer as rz
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+
+    out = {}
+    for name, size, step in (("find_front_and_silhouettes", find_front_size, 32), ("overlay", SIZE, 8)):
+        loads, batches = [], 0
+        for info in infos:
+            smpls = info.get_array("smpls")
+            for i in range(0, len(smpls), step):
+                d = smpl_mod.get_details(model, torch.as_tensor(smpls[i:i + step], device=model.v_template.device))
+                fv = rz.verts_to_faces(rz.project_verts(d["verts"], d["cam"]), model.faces).contiguous()
+                got, ref = rc.raster_fim(fv, size), rc.raster_fim_plain(fv, size)
+                raster_agreement(got.fim, ref.fim, got.wim, ref.wim, f"raster_fim/pipeline {name} {info.name} {i}",
+                                 bit_equal=True)
+                loads.append(rc.bin_faces_table(fv, size, TABLE_K, with_stats=True).stats["max_tile_load"])
+                batches += 1
+        out[name] = {"size": size, "batches": batches, "bit_equal": True, "max_tile_load_8x128": max(loads),
+                     "jax_would_drop_faces": max(loads) > TABLE_K}
+    return out
+
+
+def pipeline_phase(device, clip: dict) -> dict:
+    """A raw clip to frames, through the three stages a user runs: PNG
+    folders of 8 source and 16 reference frames of the 1080x1920 clip, then
+    `run_imitator(opt, device="cuda")` (preprocess: detection, crop, SPIN,
+    mattes, find-front, inpainting, overlay for both inputs, the 500-step
+    offset fit for the source; `personalize` for 4 iterations at full width;
+    `imitate`), then `run_viewer` and `run_swapper` on the processed
+    directories (their preprocess and personalize are skips). The seeded
+    segmenter is the calibrated one, with a seeded GCA refiner, handed to the
+    Preprocessor as its mattor (detection shares it), and SPIN is the seeded
+    one with its camera head zeroed (`framed_spin_params`); every other
+    network is what the Preprocessor builds without weight files (Body-25
+    reports `trained` False, so SMPLify does not run, as in the JAX package).
+    Then K3 against its plain version on the pipeline's batches."""
+    from unittest import mock
+
+    from ipercore_tpu_torch.services import options, personalization
+    from ipercore_tpu_torch.services import preprocess as prep_mod
+    from ipercore_tpu_torch.services import run_imitator as ri
+    from ipercore_tpu_torch.services.meta_info import MetaProcess
+    from ipercore_tpu_torch.services.process_info import ProcessInfo
+    from ipercore_tpu_torch.services.run_swapper import run_swapper
+    from ipercore_tpu_torch.services.run_viewer import run_viewer
+    from ipercore_tpu_torch.tools import mattors as mt
+    from ipercore_tpu_torch.tools import pose3d as p3
+    from ipercore_tpu_torch.tools.preprocessor import Preprocessor
+    from ipercore_tpu_torch.utils import video as vid
+    from ipercore_tpu_torch.utils.checkpoint import seeded_flat_params
+
+    frames = clip["frames"]
+    out = {"raw": {"source_frames": PIPE_SRC, "reference_frames": PIPE_REF, "size": [CLIP_H, CLIP_W]}}
+    stage_s, returned = {}, {}
+
+    def timed(module, name):
+        fn = getattr(module, name)
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                returned[name] = fn(*a, **k)
+                return returned[name]
+            finally:
+                torch.cuda.synchronize()
+                stage_s[name] = time.perf_counter() - t0
+        return mock.patch.object(module, name, run)
+
+    def pred_frames(path):
+        d = path if os.path.isdir(path) else os.path.dirname(path)
+        names = sorted(f for f in os.listdir(d) if f.startswith("pred_"))
+        return np.stack([vid.load_image(os.path.join(d, f)) for f in names])
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        for name, part in (("raw_src", frames[:PIPE_SRC]), ("raw_ref", frames[PIPE_SRC:])):
+            os.makedirs(os.path.join(root, name))
+            for i, f in enumerate(part):
+                vid.save_image(os.path.join(root, name, f"{i:04d}.png"), f)
+        out["write_raw_pngs_s"] = time.perf_counter() - t0
+        opt = options.setup(None, [])
+        opt.update(image_size=SIZE, num_source=NS, output_dir=root, model_id="pipeline", Generator=CFG,
+                   view_frames=CHUNK, src_path=f"path?={root}/raw_src,name?=subject",
+                   ref_path=f"path?={root}/raw_ref,name?=dance")
+        opt.Train.update(niters_or_epochs_no_decay=SERVICE_ITERS, niters_or_epochs_decay=0)
+        pre = Preprocessor(image_size=SIZE, device=device)
+        pre._mattor = mt.HumanMattor(seg_params=clip["seg_flat"], device=device,
+                                     mat_params=seeded_flat_params(mt.GCAMattingRefiner(), mt.MATTING_SEED))
+        pre._spin = p3.SPINRunner(params=framed_spin_params(seeded_flat_params(p3.SPINNet(), p3.SPIN_SEED)),
+                                  device=device)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(prep_mod, "_preprocessor", lambda opt, device: pre))
+            for module, name in ((prep_mod, "human_estimate"), (prep_mod, "digital_deform"),
+                                 (prep_mod, "post_update_opt"), (personalization, "personalize"),
+                                 (ri, "imitate")):
+                stack.enter_context(timed(module, name))
+            zero_counts()
+            t0 = time.perf_counter()
+            outputs = ri.run_imitator(opt, device=device)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            out["launches"] = read_counts()
+        check(all(out["launches"][k] > 0 for k in ("raster_flows_csr", "grid_sample_nhwc", "raster_fim")),
+              f"pipeline: launches {out['launches']}")
+
+        # what the preprocessing wrote
+        src = ProcessInfo.deserialize(MetaProcess("subject", root).processed_dir)
+        ref = ProcessInfo.deserialize(MetaProcess("dance", root).processed_dir)
+        for info, n_frames, is_src in ((src, PIPE_SRC, True), (ref, PIPE_REF, False)):
+            check(info.check_has_been_processed(), f"pipeline: {info.name} is not processed")
+            smpls, masks = info.get_array("smpls"), info.get_array("masks")
+            check(smpls is not None and smpls.shape == (n_frames, 85) and np.isfinite(smpls).all(),
+                  f"pipeline: {info.name} smpls")
+            check(masks is not None and masks.shape == (n_frames, SIZE, SIZE, 1) and 0 < masks.mean() < 1,
+                  f"pipeline: {info.name} masks")
+            ids = np.concatenate([info.get_array("ft_ids"), info.get_array("bk_ids")])
+            check(set(ids.tolist()) == set(range(n_frames)), f"pipeline: {info.name} front / back ids {ids}")
+            bg = os.path.join(info.processed_dir, "background.png")
+            check(os.path.exists(bg) == is_src, f"pipeline: {info.name} background.png")
+        deformed = returned["digital_deform"]
+        check(deformed == {"subject": "offsets" if src.get_array("links_ids") is None else "links"}
+              and (src.get_array("offsets") is not None or src.get_array("links_ids") is not None),
+              f"pipeline: digital_deform {deformed}")
+        offsets = src.get_array("offsets")
+        # the body in the frame: every source frame's SMPL silhouette holds
+        # pixels, so the fit has a gradient and moves the offsets
+        src_sil = pre._smpl_silhouette(src.get_array("smpls"))
+        sil_share = src_sil.mean(axis=(1, 2, 3))
+        src_person = (src.get_array("masks") < 0.5).astype(np.float32)
+        check(bool((sil_share > 0.01).all()), f"pipeline: source silhouettes {sil_share.tolist()}")
+        check(offsets is None or (np.isfinite(offsets).all() and np.abs(offsets).max() > 0),
+              "pipeline: the offset fit left the offsets at 0")
+        imitated = pred_frames(outputs[0])
+        moved = float(np.abs(imitated[0] - imitated[-1]).max())
+        check(imitated.shape == (PIPE_REF, SIZE, SIZE, 3) and np.isfinite(imitated).all()
+              and np.abs(imitated).max() <= 1.0, f"pipeline: imitated frames {imitated.shape}")
+        check(moved > 0.01, f"pipeline: the imitated frames do not change ({moved})")
+        stages = {}
+        for rep in pre.reports:
+            for k, v in rep["stage_s"].items():
+                stages[k] = stages.get(k, 0.0) + v
+        out.update({
+            "wall_s": total, "stage_s": stage_s, "human_estimate_split_s": stages,
+            "per_input": [{"name": r["name"], "stage_s": r["stage_s"], "detect_method": r.get("detect_method"),
+                           "matte_compact": r.get("matte", {}).get("compact"),
+                           "matte_band": r.get("matte", {}).get("use_band"),
+                           "refiner_sub_batch": r.get("matte", {}).get("sub_batch"),
+                           "visual": os.path.relpath(r["visual"], root) if r.get("visual") else None}
+                          for r in pre.reports],
+            "pose2d_trained": bool(pre.pose2d.trained), "deform": deformed,
+            "source_person_share": float(1.0 - src.get_array("masks").mean()),
+            "source_silhouette_share": sil_share.tolist(),
+            "source_mask_iou_with_silhouette": float(
+                (src_sil * src_person).sum() / max(float(np.maximum(src_sil, src_person).sum()), 1.0)),
+            "source_cam_mean": src.get_array("smpls")[:, :3].mean(0).tolist(),
+            "offsets_max_abs": float(np.abs(offsets).max()) if offsets is not None else None,
+            "num_source_after_update": int(opt.num_source),
+            "output": os.path.relpath(outputs[0], root), "imitated_frames": int(imitated.shape[0]),
+            "imitated_first_last_max_abs_diff": moved,
+            "reference_pose_spread": float(np.abs(ref.get_array("smpls") - ref.get_array("smpls")[:1]).max()),
+        })
+        out["k3"] = pipeline_k3_batches(pre.body_model, (src, ref), pre.find_front_size)
+
+        # the other two three-stage runners on the processed directories
+        for name, fn, n_frames in (("run_viewer", run_viewer, CHUNK), ("run_swapper", run_swapper, PIPE_REF)):
+            zero_counts()
+            t0 = time.perf_counter()
+            res = fn(opt, device=device)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_counts()
+            got = pred_frames(res[0])
+            check(got.shape == (n_frames, SIZE, SIZE, 3) and np.isfinite(got).all(),
+                  f"pipeline: {name} frames {got.shape}")
+            check(launches["raster_flows_csr"] > 0 and launches["grid_sample_nhwc"] > 0, f"pipeline: {name} {launches}")
+            out[name] = {"wall_s": seconds, "frames": int(got.shape[0]), "launches": launches}
     return out
 
 
@@ -2574,10 +3043,14 @@ def main() -> int:
     emit("train_service", **service_train)
     zoo = zoo_phase(device)
     emit("zoo", **zoo)
-    pre, crops = preprocess_phase(device)
+    pre, clip = preprocess_phase(device)
     emit("preprocess_2d", **pre)
-    pre3 = preprocess_3d_phase(device, crops)
+    pre3, theta = preprocess_3d_phase(device, clip["crops"])
     emit("preprocess_3d", **pre3)
+    mattes = preprocess_mattes_phase(device, clip, theta)
+    emit("preprocess_mattes", **mattes)
+    pipe = pipeline_phase(device, clip)
+    emit("pipeline", **pipe)
 
     # launches: K1-K3 on the main path's run, K4 on the table route's
     launches = dict(result["launches"], raster_flows_table=table["launches"]["raster_flows_table"])
@@ -2594,9 +3067,11 @@ def main() -> int:
         t: v["k3_launches_per_step"] for t, v in zoo["trainers"].items()}
     kernels["raster_fim"]["launches_per_zoo_eval_step"] = {
         t: v["k3_launches_per_eval"] for t, v in zoo["trainers"].items()}
-    for name in kernels:  # preprocessing part 1 runs none of the four; part 2 runs K3
+    for name in kernels:  # preprocessing part 1 runs none of the four; parts 2 and 3 run K3
         kernels[name]["launches_preprocess_2d"] = pre["launches"][name]
         kernels[name]["launches_preprocess_3d"] = pre3["launches"][name]
+        kernels[name]["launches_preprocess_mattes"] = mattes["launches"][name]
+        kernels[name]["launches_pipeline"] = pipe["launches"][name]
     line = {"kernels": [
         {"name": name, "replaces": REPLACES[name], "launches": launches[name],
          "ms": v["wrapper_ms"], **v}  # `ms`: the whole call, as a user of the wrapper pays it

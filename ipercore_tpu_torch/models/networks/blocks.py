@@ -51,6 +51,12 @@ class FrozenBatchNorm(nn.Module):
         return (x - self.mean) * (self.scale * torch.rsqrt(self.var + self.eps)) + self.bias
 
 
+def frozen_bn_nchw(bn: FrozenBatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """`FrozenBatchNorm` (its parameters and epsilon) on an NCHW tensor."""
+    c = lambda p: p[:, None, None]
+    return (x - c(bn.mean)) * c(bn.scale * torch.rsqrt(bn.var + bn.eps)) + c(bn.bias)
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Parameter-free instance norm over the spatial dims of NHWC (biased
     variance, as `InstanceNorm2d(affine=False)`)."""

@@ -1,16 +1,14 @@
-"""Motion-imitation service: chunked frame synthesis and the imitation stage.
+"""Motion-imitation service: preprocess -> personalize -> imitate.
 
 Twin of `ipercore_tpu/services/run_imitator.py`: `build_runtime` makes the
 body model, composer and generator from an options dict, `load_source_cache`
 reads a preprocessed source from disk, `imitate_sequence` synthesizes frames
-chunk by chunk (or frame by frame in temporal mode), and `imitate` runs the
+chunk by chunk (or frame by frame in temporal mode), `imitate` runs the
 imitation stage for every (source, reference) pair and writes PNG frames and
-a video.
-
-What is not here: the three-stage `run_imitator` (preprocess, personalize,
-imitate) needs the perception stack, which is not ported; `main` runs the
-imitation stage alone on already processed inputs, after
-`services/personalization.personalize` when personalized weights are wanted.
+a video, and `run_imitator` (what `main` runs) takes raw inputs through the
+three stages: `services/preprocess.preprocess`,
+`services/personalization.personalize`, `imitate`. Inputs that are already
+processed or personalized skip those stages.
 
 Weights: `<output_dir>/models/<model_id>/personalized.npz` when it exists,
 else `seeded_flat_params(G, seed=0)` for the generator `opt.gen_name` (any
@@ -234,13 +232,23 @@ def imitate(opt, device: Device = "cuda") -> list[str]:
     return outputs
 
 
+def run_imitator(opt, device: Device = "cuda") -> list[str]:
+    """The three stages: preprocess, personalize, imitate."""
+    from ipercore_tpu_torch.services.personalization import personalize
+    from ipercore_tpu_torch.services.preprocess import preprocess
+
+    preprocess(opt, device=device)
+    personalize(opt, device=device)
+    return imitate(opt, device=device)
+
+
 def main(argv=None):  # pragma: no cover - CLI shim
     """`python -m ipercore_tpu_torch.services.run_imitator --src_path ...
-    --ref_path ... [--device cpu]` on already processed inputs."""
+    --ref_path ... [--device cpu]` on raw frames, videos or processed inputs."""
     from ipercore_tpu_torch.services.options import parse_args
 
     opt = parse_args(argv)
-    return imitate(opt, device=opt.get("device", "cuda"))
+    return run_imitator(opt, device=opt.get("device", "cuda"))
 
 
 if __name__ == "__main__":  # pragma: no cover

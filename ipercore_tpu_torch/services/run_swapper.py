@@ -3,9 +3,9 @@
 Twin of `swap` in `ipercore_tpu/services/run_swapper.py`: every source person
 after the first claims the body parts its `parts?=` names, the first person
 keeps the faces nobody claimed, their caches are merged
-(`merge_source_caches`) and the merged source imitates each reference. The
-three-stage `run_swapper` (preprocess, personalize, swap) is not ported;
-`main` runs the swapping stage on already processed inputs.
+(`merge_source_caches`) and the merged source imitates each reference.
+`run_swapper` (what `main` runs) takes raw inputs through preprocess,
+personalize and the swap.
 """
 from __future__ import annotations
 
@@ -68,13 +68,23 @@ def swap(opt, device: Device = "cuda") -> list[str]:
     return outputs
 
 
+def run_swapper(opt, device: Device = "cuda") -> list[str]:
+    """The three stages: preprocess, personalize, swap."""
+    from ipercore_tpu_torch.services.personalization import personalize
+    from ipercore_tpu_torch.services.preprocess import preprocess
+
+    preprocess(opt, device=device)
+    personalize(opt, device=device)
+    return swap(opt, device=device)
+
+
 def main(argv=None):  # pragma: no cover - CLI shim
     """`python -m ipercore_tpu_torch.services.run_swapper --src_path 'a|b,parts?=...'
-    --ref_path ... [--device cpu]` on already processed inputs."""
+    --ref_path ... [--device cpu]`."""
     from ipercore_tpu_torch.services.options import parse_args
 
     opt = parse_args(argv)
-    return swap(opt, device=opt.get("device", "cuda"))
+    return run_swapper(opt, device=opt.get("device", "cuda"))
 
 
 if __name__ == "__main__":  # pragma: no cover

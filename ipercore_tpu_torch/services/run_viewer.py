@@ -3,9 +3,8 @@
 Twin of `novel_view` in `ipercore_tpu/services/run_viewer.py`: per source, a
 ring of `view_frames` (default 180) SMPLs turned about the y axis (the source
 pose, or a T-pose with `T_pose`), camera-stabilised and swapped like any
-target, through the same synthesis as the imitator. The three-stage
-`run_viewer` (preprocess, personalize, view) is not ported; `main` runs the
-viewing stage on already processed inputs.
+target, through the same synthesis as the imitator. `run_viewer` (what `main`
+runs) takes raw inputs through preprocess, personalize and the view.
 """
 from __future__ import annotations
 
@@ -52,13 +51,23 @@ def novel_view(opt, device: Device = "cuda") -> list[str]:
     return outputs
 
 
+def run_viewer(opt, device: Device = "cuda") -> list[str]:
+    """The three stages: preprocess, personalize, novel view."""
+    from ipercore_tpu_torch.services.personalization import personalize
+    from ipercore_tpu_torch.services.preprocess import preprocess
+
+    preprocess(opt, device=device)
+    personalize(opt, device=device)
+    return novel_view(opt, device=device)
+
+
 def main(argv=None):  # pragma: no cover - CLI shim
     """`python -m ipercore_tpu_torch.services.run_viewer --src_path ...
-    [--view_frames N] [--T_pose] [--device cpu]` on already processed inputs."""
+    [--view_frames N] [--T_pose] [--device cpu]`."""
     from ipercore_tpu_torch.services.options import parse_args
 
     opt = parse_args(argv)
-    return novel_view(opt, device=opt.get("device", "cuda"))
+    return run_viewer(opt, device=opt.get("device", "cuda"))
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -9,8 +9,9 @@ The port's copy of `ipercore_tpu/tools/deformers.py` (the reference's
     triangles (`soft_silhouette_raster`) or a vertex-splat one
     (`soft_silhouette`);
   * cloth links: inner leg vertices below a skirt hem linked to the other
-    leg (`smpl_link`), or leg vertices below a cloth hem linked to the hem
-    ring (`find_cloth_links`).
+    leg (`smpl_link`; the hem from SCHP's skirt+dress mask in
+    `find_cloth_links_schp`), or leg vertices below a cloth hem linked to the
+    hem ring (`find_cloth_links`).
 
 The silhouette is differentiable, so it runs in PyTorch, not in the raster
 kernels: those give hard face-index maps.
@@ -224,6 +225,27 @@ def smpl_link(model, theta: np.ndarray, skirt_y: float,
     fr = np.concatenate([fr_r, fr_l])
     to = np.concatenate([to_r, to_l])
     return np.stack([fr, to, np.ones_like(fr)], axis=1).astype(np.int32)
+
+
+def find_cloth_links_schp(parser, image: np.ndarray, theta: np.ndarray, model) -> tuple[bool, np.ndarray]:
+    """Skirt / dress cloth links (`clothlinks_deformer.py:24-65`): the SCHP
+    skirt+dress mask of `image`, its lowest row as the hem in NDC y, then
+    `smpl_link`.
+
+    Args:
+        parser: a trained `tools/parsers.SchpParser`; image: (H, W, 3) in
+            [-1, 1]; theta: (85,) of that frame.
+
+    Returns:
+        (found, links_ids (L, 3) int32).
+    """
+    found, masks = parser.run(image[None], target="skirt+dress")
+    if not found or not len(masks) or masks[0].sum() == 0:
+        return False, np.zeros((0, 3), np.int32)
+    mask = masks[0]
+    rows = np.nonzero(mask.any(axis=1))[0]
+    links = smpl_link(model, theta, rows[-1] / mask.shape[0] * 2.0 - 1.0)
+    return len(links) > 0, links
 
 
 def find_cloth_links(verts: np.ndarray, cloth_mask_low_y: float) -> np.ndarray:

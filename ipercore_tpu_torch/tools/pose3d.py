@@ -26,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ipercore_tpu_torch.models import smpl as smpl_mod
-from ipercore_tpu_torch.models.networks.blocks import FrozenBatchNorm
+from ipercore_tpu_torch.models.networks.blocks import FrozenBatchNorm, frozen_bn_nchw as _bn
 from ipercore_tpu_torch.ops.rotations import axis_angle_to_rot6d, rot6d_to_rotmat, rotmat_to_axis_angle
 from ipercore_tpu_torch.utils.checkpoint import (WEIGHTS_DIR, load_flat_npz, load_generator_params,
                                                  seeded_flat_params)
@@ -38,12 +38,6 @@ SPIN_DEFAULT_WEIGHTS = os.path.join(WEIGHTS_DIR, "spin.npz")
 GMM_DEFAULT_WEIGHTS = os.path.join(WEIGHTS_DIR, "gmm_prior.npz")
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-
-
-def _bn(bn: FrozenBatchNorm, x: torch.Tensor) -> torch.Tensor:
-    """`FrozenBatchNorm` (its parameters and epsilon) on an NCHW tensor."""
-    c = lambda p: p[:, None, None]
-    return (x - c(bn.mean)) * c(bn.scale * torch.rsqrt(bn.var + bn.eps)) + c(bn.bias)
 
 
 class Bottleneck(nn.Module):

@@ -5,7 +5,8 @@ port has: the generator (`convert_generator`, the reference's
 `AttLWB-SPADE_id_G_*.pth` layout), the discriminators, the VGG19 / VGG16 /
 VGG11 perceptual nets, Sphere20a and SENet-50 face nets, InceptionV3 (FID),
 LPIPS(lin), the 2D pose nets OpenPose Body-25 (`convert_openpose`) and
-Mobilenet OpenPose (`convert_mobilenet_openpose`), and SPIN (`convert_spin`). Each takes a state dict (torch tensors or numpy arrays,
+Mobilenet OpenPose (`convert_mobilenet_openpose`), SPIN (`convert_spin`), SCHP
+(`convert_schp`) and ESRGAN (`convert_esrgan`). Each takes a state dict (torch tensors or numpy arrays,
 `module.` prefixes allowed) and `like`, the flat parameters to fill
 (`{flax key: array}`, e.g. `seeded_flat_params(net)`, or a network of the
 port, whose own parameters are then the starting values). It returns
@@ -583,4 +584,122 @@ def convert_spin(sd: Mapping, like: Like) -> tuple[dict[str, np.ndarray], list[s
             _assign(params, [name], sd[name], report)
         else:
             report.append("ABSENT " + name)
+    return _finish(tree, params), report
+
+
+# ---------------------------------------------------------------------------
+# Parsing and super-resolution (preprocessing)
+# ---------------------------------------------------------------------------
+
+def _put_abn(sd, params, torch_key, flax_path, report):
+    """InPlaceABNSync -> `tools/parsers.ABN` {bn: {scale, bias, mean, var}}.
+    Checkpoints saved from the reference's wrapper nest the statistics under
+    `<key>.bn.*`; those of the mapillary `inplace_abn` keep them on `<key>.*`:
+    both are accepted."""
+    key = torch_key + ".bn" if torch_key + ".bn.weight" in sd else torch_key
+    _put_bn(sd, params, key, flax_path + ["bn"], report)
+
+
+def convert_schp(sd: Mapping, like: Like) -> tuple[dict[str, np.ndarray], list[str]]:
+    """SCHP `exp-schp-lip.pth` state dict -> `tools/parsers.SchpNet`.
+
+    Torch layout: the 3-conv stem conv{1-3}/bn{1-3}, layer{1-4}.{b}.
+    {conv,bn}{1-3} + downsample.{0,1} (ResNet-101: 3/4/23/3),
+    context_encoding.stages.{0-3}.{1,2} + bottleneck.{0,1}, edge.conv{1-3}.
+    {0,1} + conv4/conv5, decoder.conv{1,2}.{0,1} + conv3.{0-3} + conv4,
+    fushion.{0,1,3}.
+    """
+    sd = _normalize_sd(sd)
+    tree, params = _mutable_like(like)
+    report: list[str] = []
+
+    for i in (1, 2, 3):
+        _put_conv(sd, params, f"conv{i}", [f"conv{i}"], report)
+        _put_bn(sd, params, f"bn{i}", [f"bn{i}"], report)
+    for l, blocks in enumerate((3, 4, 23, 3), start=1):
+        for b in range(blocks):
+            t = f"layer{l}.{b}"
+            f = [f"layer{l}_{b}"]
+            for j in (1, 2, 3):
+                _put_conv(sd, params, f"{t}.conv{j}", f + [f"conv{j}"], report)
+                _put_bn(sd, params, f"{t}.bn{j}", f + [f"bn{j}"], report)
+            if f"{t}.downsample.0.weight" in sd:
+                _put_conv(sd, params, f"{t}.downsample.0", f + ["downsample_conv"], report)
+                _put_bn(sd, params, f"{t}.downsample.1", f + ["downsample_bn"], report)
+
+    ce = ["context_encoding"]
+    for i in range(4):
+        _put_conv(sd, params, f"context_encoding.stages.{i}.1", ce + [f"stage{i}_conv"], report)
+        _put_abn(sd, params, f"context_encoding.stages.{i}.2", ce + [f"stage{i}_abn"], report)
+    _put_conv(sd, params, "context_encoding.bottleneck.0", ce + ["bottleneck_conv"], report)
+    _put_abn(sd, params, "context_encoding.bottleneck.1", ce + ["bottleneck_abn"], report)
+
+    for i in (1, 2, 3):
+        _put_conv(sd, params, f"edge.conv{i}.0", ["edge", f"conv{i}_conv"], report)
+        _put_abn(sd, params, f"edge.conv{i}.1", ["edge", f"conv{i}_abn"], report)
+    _put_conv(sd, params, "edge.conv4", ["edge", "conv4"], report)
+    _put_conv(sd, params, "edge.conv5", ["edge", "conv5"], report)
+
+    dec = ["decoder"]
+    for conv, abn, name in (("conv1.0", "conv1.1", "conv1"), ("conv2.0", "conv2.1", "conv2"),
+                            ("conv3.0", "conv3.1", "conv3a"), ("conv3.2", "conv3.3", "conv3b")):
+        _put_conv(sd, params, f"decoder.{conv}", dec + [f"{name}_conv"], report)
+        _put_abn(sd, params, f"decoder.{abn}", dec + [f"{name}_abn"], report)
+    _put_conv(sd, params, "decoder.conv4", dec + ["conv4"], report)
+
+    _put_conv(sd, params, "fushion.0", ["fushion_conv"], report)
+    _put_abn(sd, params, "fushion.1", ["fushion_abn"], report)
+    _put_conv(sd, params, "fushion.3", ["fushion_head"], report)
+    return _finish(tree, params), report
+
+
+# original ESRGAN repository layer names -> BasicSR / mmedit names
+_ESRGAN_RENAMES = {
+    "RRDB_trunk": "body", "trunk_conv": "conv_body",
+    "upconv1": "conv_up1", "upconv2": "conv_up2", "HRconv": "conv_hr",
+}
+
+
+def convert_esrgan(sd: Mapping, like: Like) -> tuple[dict[str, np.ndarray], list[str]]:
+    """ESRGAN `esrgan_psnr_x4c64b23g32_*` state dict -> `tools/inpaintors.
+    RRDBNet`.
+
+    Both published key families: BasicSR / mmedit (`conv_first / body.{i}.
+    rdb{j}.conv{k} / conv_body / conv_up1 / conv_up2 / conv_hr / conv_last`,
+    optionally under a `generator.` prefix; a `generator_ema.` copy is
+    skipped) and the original repository (`RRDB_trunk.{i}.RDB{j}.conv{k}.0 /
+    trunk_conv / upconv1 / ...`). A block count that differs from the
+    network's is reported as `BLOCKS: ...`.
+    """
+    sd = _normalize_sd(sd)
+    renamed: dict = {}
+    for k, v in sd.items():
+        if k.startswith("generator."):
+            k = k[len("generator."):]
+        elif k.startswith("generator_ema."):
+            continue
+        parts: list[str] = []
+        for p in k.split("."):
+            if p == "0" and parts and parts[-1].startswith("conv"):
+                continue  # the original repository wraps each RDB conv in a Sequential
+            p = _ESRGAN_RENAMES.get(p, p)
+            if p.startswith("RDB"):
+                p = p.lower()
+            parts.append(p)
+        renamed[".".join(parts)] = v
+    sd = renamed
+
+    tree, params = _mutable_like(like)
+    report: list[str] = []
+    for nm in ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr", "conv_last"):
+        _put_conv(sd, params, nm, [nm], report)
+    i = 0
+    while f"body.{i}.rdb1.conv1.weight" in sd:
+        for j in (1, 2, 3):
+            for c in range(1, 6):
+                _put_conv(sd, params, f"body.{i}.rdb{j}.conv{c}", [f"body_{i}", f"rdb{j}", f"conv{c}"], report)
+        i += 1
+    have = len([k for k in params if k.startswith("body_")])
+    if i != have:
+        report.append(f"BLOCKS: params have {have}, checkpoint has {i}")
     return _finish(tree, params), report

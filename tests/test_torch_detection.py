@@ -1,10 +1,11 @@
 """Person detection, the person segmenter and the crop geometry in the port
 against the JAX package: `tools/detection.py` (every box source and
-`detect_person_boxes`), the segmentation half of `tools/mattors.py` (with the
-repository's trained `person_seg.npz`) and `tools/preprocessor.py`'s stage
+`detect_person_boxes`), the segmenter of `tools/mattors.py` (with the
+repository's trained `person_seg.npz`, whose refiner `run` also takes) and `tools/preprocessor.py`'s stage
 1.1-1.2 geometry, on the same seeded numpy inputs.
 
-Tolerances: segmenter probabilities 1e-4, boxes 1e-3 px with the same
+Tolerances: segmenter probabilities 1e-4 (and >= 99.5 % of `run`'s masks
+equal, its alphas within 1e-4), boxes 1e-3 px with the same
 `method` string, crops 1e-5, host code equal. The trained pose net runs here
 behind `SmallPose`, which shrinks the 368² frames `pose_person_boxes` hands
 it to 64² in both packages, so that 48 frames of Body-25 stay a CPU-sized test.
@@ -26,7 +27,7 @@ from ipercore_tpu_torch.tools import detection as TD
 from ipercore_tpu_torch.tools import mattors as TMa
 from ipercore_tpu_torch.tools import pose2d as TP
 from ipercore_tpu_torch.tools import preprocessor as TPre
-from ipercore_tpu_torch.utils.checkpoint import flax_params_to_torch, load_flat_npz
+from ipercore_tpu_torch.utils.checkpoint import flax_params_to_torch, load_flat_npz, seeded_flat_params
 
 from tests.test_tools.test_detection import _scene
 from tests.test_torch_common import flatten_flax, history_weights, unflatten_to_jax
@@ -143,11 +144,14 @@ def test_segmenter_loads_the_seg_tree_and_matches_jax(nets):
     assert got.shape == (2, 96, 128, 1)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
     assert (want > 0.5).mean() > 0.03  # the trained net finds the drawn person
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tm.run(x)
-    for unported in (TMa.MattingRefiner, TMa.GCAMattingRefiner, TMa.generate_trimap):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            unported()
+    # the matting half reads the file's `mat` tree too (a `MattingRefiner`,
+    # as JAX builds without `matting_gca.npz`) and runs as JAX's
+    assert isinstance(tm.mat, TMa.MattingRefiner) and isinstance(jm.mat, JMa.MattingRefiner)
+    alpha, mask = tm.run(x)
+    jalpha, jmask = jm.run(x)
+    assert alpha.shape == mask.shape == (2, 96, 128, 1)
+    assert (mask == np.asarray(jmask)).mean() >= 0.995
+    assert (np.abs(alpha - np.asarray(jalpha)) <= 1e-4).mean() >= 0.995
 
 
 def test_seeded_segmenter_is_untrained_with_slopes_and_shapes(nets, tmp_path):
@@ -163,7 +167,8 @@ def test_segmenter_falls_back_to_the_gca_file_as_jax(nets, tmp_path, gca_trees):
     """Without `person_seg.npz`, the `seg` tree of `matting_gca.npz` when that
     file also holds a `mat` tree (JAX then runs the GCA refiner); else seeds."""
     seg = {f"seg/{k}": v.astype(np.float16) for k, v in nets["port"]["mattor"].seg_params.items()}
-    mat = {"mat/params/Conv_0/bias": np.zeros((4,), np.float16)} if "mat" in gca_trees else {}
+    mat = ({f"mat/{k}": v.astype(np.float16) for k, v in seeded_flat_params(TMa.GCAMattingRefiner(), 8).items()}
+           if "mat" in gca_trees else {})
     gca = str(tmp_path / "gca.npz")
     np.savez(gca, **seg, **mat)
     absent = str(tmp_path / "absent.npz")

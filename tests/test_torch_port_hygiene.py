@@ -60,7 +60,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "ipercore_tpu_torch.tools.detection", "ipercore_tpu_torch.tools.pose2d",
               "ipercore_tpu_torch.tools.pose2d_mobilenet", "ipercore_tpu_torch.tools.mattors",
               "ipercore_tpu_torch.tools.preprocessor", "ipercore_tpu_torch.utils.keypoints",
-              "ipercore_tpu_torch.tools.pose3d", "ipercore_tpu_torch.tools.deformers"):
+              "ipercore_tpu_torch.tools.pose3d", "ipercore_tpu_torch.tools.deformers",
+              "ipercore_tpu_torch.ops.attention", "ipercore_tpu_torch.tools.parsers",
+              "ipercore_tpu_torch.tools.inpaintors", "ipercore_tpu_torch.services.preprocess"):
         assert m in names
     code = (
         "import importlib, sys\n"
@@ -163,6 +165,22 @@ ENTRY_POINTS = [
     ("ipercore_tpu_torch.tools.pose3d", "load_gmm_prior"),
     ("ipercore_tpu_torch.tools.pose3d", "fit_gmm_prior"),
     ("ipercore_tpu_torch.tools.deformers", "run_sil2smpl_offsets"),
+    ("ipercore_tpu_torch.tools.mattors", "build_mattor"),
+    ("ipercore_tpu_torch.tools.parsers", "SchpParser"),
+    ("ipercore_tpu_torch.tools.parsers", "build_parser"),
+    ("ipercore_tpu_torch.tools.inpaintors", "SuperResolutionInpaintor"),
+    ("ipercore_tpu_torch.tools.inpaintors", "build_background_inpaintors"),
+    ("ipercore_tpu_torch.tools.preprocessor", "Preprocessor"),
+    ("ipercore_tpu_torch.tools.preprocessor", "background_visibility"),
+    ("ipercore_tpu_torch.utils.visualizer", "smpl_overlay_frames"),
+    ("ipercore_tpu_torch.utils.visualizer", "write_visual_video"),
+    ("ipercore_tpu_torch.services.preprocess", "preprocess"),
+    ("ipercore_tpu_torch.services.preprocess", "preprocess_one"),
+    ("ipercore_tpu_torch.services.preprocess", "human_estimate"),
+    ("ipercore_tpu_torch.services.preprocess", "digital_deform"),
+    ("ipercore_tpu_torch.services.run_imitator", "run_imitator"),
+    ("ipercore_tpu_torch.services.run_viewer", "run_viewer"),
+    ("ipercore_tpu_torch.services.run_swapper", "run_swapper"),
 ]
 
 
