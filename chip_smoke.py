@@ -38,7 +38,14 @@ without super-resolution; each on the card against the CPU); and the
 `run_imitator` (preprocess, personalize, imitate), then `run_viewer` and
 `run_swapper`, with K1-K3 launched, the body in the frame (SPIN's camera
 head zeroed), the offsets moved, the imitated frames changing, and K3
-bit-equal to its plain version on the pipeline's batches.
+bit-equal to its plain version on the pipeline's batches. After `evaluate`:
+`parallel` (`sharded_synthesize` on 13 frames over every visible card and over
+[cuda:0, cuda:0], each shard bit-equal to `synthesize_frames` of its frames;
+with a second card, K1-K3 on `cuda:1` while `cuda:0` is current) and
+`streaming` (`StreamingSynthesizer` over 32 frames writing PNGs, byte-equal to
+`imitate_sequence` + `write_frames`); last, `synth_data` (`compose_scene` at
+`scripts/train_spin.py`'s defaults: K1 bit-equal on its renders, the scene
+against the CPU fed the card's draws).
 Reads no weight file: every network is seeded (the GMM pose prior is data,
 tracked in the repository).
 Every phase prints one JSON line; any failed check raises, so the exit code
@@ -2990,6 +2997,371 @@ def pipeline_phase(device, clip: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 17-19: frame sharding, streaming synthesis, synthetic scenes
+# ---------------------------------------------------------------------------
+
+PAR_FRAMES = 13  # a count that is not a multiple of 2 or 4
+STREAM_FRAMES = 32
+# `scripts/train_spin.py`'s defaults: batch 16 at scene size 256 (K1 rasters
+# 512^2), studio 0.35, garment 0.5, natural 0.65; no real-photo crops
+SYNTH_BATCH, SYNTH_SIZE = 16, 256
+SYNTH_KW = {"studio_frac": 0.35, "garment_frac": 0.5, "natural_frac": 0.65}
+
+
+def sync_all(devices) -> None:
+    for d in {d.index for d in devices}:
+        torch.cuda.synchronize(d)
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN's deterministic algorithms inside the block. Two runs of the same
+    frames are bit-equal only so: some f32 algorithms the generator's
+    convolutions and transposed convolutions take by default add partial sums
+    in no fixed order (a run against a run of the same chunk differed by
+    about 1e-6)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def batching_split(comp, gen, cache, smpls, n_shards: int, preds) -> dict:
+    """Why `n_shards` shards of `smpls` (`preds`, gathered) differ from one
+    unsplit call, all on `preds`' device: the geometry (SMPL LBS, K1, the
+    flows) and the generator each run at the shards' batch size and at the
+    whole batch's. "whole": the unsplit call's geometry and generator;
+    "generator_at_shard_batch": the generator in the shards' batches on the
+    whole call's geometry; "shard_geometry_at_whole_batch": the generator in
+    one batch on the shards' geometry, against which the sharded frames are
+    also held ("sharded_vs_shard_geometry")."""
+    from ipercore_tpu_torch.models import imitator as imit
+    from ipercore_tpu_torch.parallel.mesh import pad_to_multiple
+
+    T = smpls.shape[0]
+    padded, _ = pad_to_multiple(smpls, n_shards)
+    per = padded.shape[0] // n_shards
+    with torch.no_grad():
+        w_tsf, w_Tst, w_info = imit.make_frame_inputs(comp, cache, smpls)
+        parts = [imit.make_frame_inputs(comp, cache, padded[k * per:(k + 1) * per]) for k in range(n_shards)]
+    s_tsf, s_Tst = (torch.cat([p[i] for p in parts])[:T] for i in (0, 1))
+    s_fim, s_verts = (torch.cat([p[2][key] for p in parts])[:T] for key in ("fim", "verts"))
+    flips = s_fim != w_info["fim"]  # (T, S, S)
+    frames = lambda tsf, Tst: imit.generate_frames(gen, cache, tsf, Tst)[0]
+    whole = frames(w_tsf, w_Tst)
+    p_tsf, p_Tst = (pad_to_multiple(x, n_shards)[0] for x in (w_tsf, w_Tst))
+    gen_split = torch.cat([frames(p_tsf[k * per:(k + 1) * per], p_Tst[k * per:(k + 1) * per])
+                           for k in range(n_shards)])[:T]
+    geo_split = frames(s_tsf, s_Tst)
+    out = {"shard_frames": per, "pixels_of_another_face": int(flips.sum()),
+           "frames_with_another_face": int(flips.any(-1).any(-1).sum()),
+           "verts_max_diff": float((s_verts - w_info["verts"]).abs().max()),
+           "inputs_max_diff_same_face": float(((s_tsf - w_tsf).abs() * ~flips[..., None]).max())}
+    for name, got, want in (("generator_at_shard_batch", gen_split, whole),
+                            ("shard_geometry_at_whole_batch", geo_split, whole),
+                            ("sharded_vs_shard_geometry", preds, geo_split),
+                            ("sharded", preds, whole)):
+        d = (got - want).abs()
+        out[name] = {"max_diff": float(d.max()), "values_over_2e-2": int((d > 2e-2).sum()),
+                     "close_fraction": close_fraction(got, want)}
+    return out
+
+
+def sharded_run(comp, gen, cache, smpls, devices) -> dict:
+    """One `sharded_synthesize` over `devices`: its shards held bit-equal to
+    `synthesize_frames` of the same frames on `devices[0]`, then timed."""
+    from ipercore_tpu_torch.models import imitator as imit
+    from ipercore_tpu_torch.parallel.inference import sharded_synthesize
+    from ipercore_tpu_torch.parallel.mesh import pad_to_multiple, replicate
+
+    n_dev = len(devices)
+    zero_counts()
+    preds, masks = sharded_synthesize(comp, gen, cache, smpls, devices=devices)
+    sync_all(devices)
+    launches = read_counts()
+    T = smpls.shape[0]
+    check(preds.shape == (T, SIZE, SIZE, 3) and masks.shape == (T, SIZE, SIZE, 1)
+          and preds.device == devices[0], f"sharded_synthesize gave {tuple(preds.shape)} on {preds.device}")
+    check(bool(torch.isfinite(preds).all()), "sharded frames are not finite")
+    for k in ("raster_flows_csr", "grid_sample_nhwc"):
+        check(launches[k] == n_dev, f"{k} launched {launches[k]} times for {n_dev} shards")
+    check(launches["raster_fim"] == 0, f"raster_fim launched {launches['raster_fim']} times")
+    padded, _ = pad_to_multiple(smpls, n_dev)
+    per = padded.shape[0] // n_dev
+    with deterministic_convolutions():
+        preds, masks = sharded_synthesize(comp, gen, cache, smpls, devices=devices)
+        for k in range(n_dev):
+            keep = min(per, T - k * per)  # a shard of padding alone returns nothing
+            if keep <= 0:
+                continue
+            p, m = imit.synthesize_frames(comp, gen, cache, padded[k * per:(k + 1) * per])
+            got = preds[k * per:k * per + keep]
+            if not (torch.equal(got, p[:keep]) and torch.equal(masks[k * per:k * per + keep], m[:keep])):
+                raise AssertionError(f"shard {k} on {devices[k]} differs from synthesize_frames of its "
+                                     f"frames on {devices[0]} by {float((got - p[:keep]).abs().max())}")
+    # Against one unsplit call. One shard: the main path's bar. Several: the
+    # shards batch fewer frames, and SMPL's LBS then rounds the vertices a few
+    # ulps otherwise, which moves pixels to another face and barycentric
+    # samples of thin faces (ROADMAP Queue 3). That geometry is bounded by
+    # ulps; everything else is held to the main path's bar and to JAX's
+    # `assert_allclose(atol=2e-2)` of `test_parallel.py` on every value: the
+    # generator in the shards' batches on the unsplit call's geometry, and the
+    # sharded frames against the generator in one batch on the shards'
+    # geometry. The sharded frames against the unsplit call are reported.
+    whole, _ = imit.synthesize_frames(comp, gen, cache, smpls)
+    split = None
+    if n_dev == 1:
+        close = close_fraction(preds, whole)
+        check(close >= 0.995, f"sharded frames agree with one unsplit call on {close} of values, < 0.995")
+    else:
+        split = batching_split(comp, gen, cache, smpls, n_dev, preds)
+        check(split["verts_max_diff"] <= 1e-6,
+              f"SMPL vertices of {per}-frame shards differ from the unsplit batch's by {split['verts_max_diff']}")
+        for part in ("generator_at_shard_batch", "sharded_vs_shard_geometry"):
+            check(split[part]["values_over_2e-2"] == 0 and split[part]["close_fraction"] >= 0.995,
+                  f"{part}: {split[part]}")
+
+    sync_all(devices)
+    t0 = time.perf_counter()
+    for d in dict.fromkeys(devices):
+        replicate((comp, gen, cache), d)
+    sync_all(devices)
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    sharded_synthesize(comp, gen, cache, smpls, devices=devices)  # warm-up
+    sync_all(devices)
+    t0 = time.perf_counter()
+    sharded_synthesize(comp, gen, cache, smpls, devices=devices)
+    sync_all(devices)
+    wall = time.perf_counter() - t0
+    return {"devices": [str(d) for d in devices], "frames": T, "frames_per_s": T / wall,
+            "call_ms": wall * 1e3, "replica_copy_ms": copy_ms,
+            "host_syncs_per_call": host_syncs(lambda: sharded_synthesize(comp, gen, cache, smpls,
+                                                                         devices=devices)),
+            "launches": launches,
+            "launches_per_device": {k: launches[k] / n_dev
+                                    for k in ("raster_flows_csr", "grid_sample_nhwc", "raster_fim")},
+            "shards_bit_equal": True, "close_fraction_vs_unsplit": close_fraction(preds, whole),
+            "max_abs_diff_vs_unsplit": float((preds - whole).abs().max()), "batching_split": split}
+
+
+def other_device_checks(model, assets, device, other) -> dict:
+    """The launch repair held directly: K1, K3 and K2 on `other`'s tensors,
+    with `device` current, bit-equal to their plain versions there."""
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+    from ipercore_tpu_torch.ops import sampling_cuda as sc
+    from ipercore_tpu_torch.ops.dispatch import force_plain
+
+    tgt_fv, _, aux = (x.to(other) for x in geometry_inputs(model, assets, device))
+    img = torch.rand((1, SIZE, SIZE, 3), device=other).expand(CHUNK, SIZE, SIZE, 3)
+    with torch.cuda.device(device):
+        check(torch.cuda.current_device() == device.index, "the current device is not the first")
+        fim, flows = rc.raster_flows(tgt_fv, aux, SIZE)
+        out = rc.raster_fim(tgt_fv, SIZE)
+        grid = flows[..., 0, :]
+        sampled = sc.grid_sample_nhwc(img, grid)
+        torch.cuda.synchronize(other)
+        with force_plain():
+            fim_p, flows_p = rc.raster_flows(tgt_fv, aux, SIZE)
+            out_p = rc.raster_fim(tgt_fv, SIZE)
+            sampled_p = sc.grid_sample_nhwc(img, grid)
+    for what, a, b in (("raster_flows fim", fim, fim_p), ("raster_flows flows", flows, flows_p),
+                       ("raster_fim fim", out.fim, out_p.fim), ("raster_fim wim", out.wim, out_p.wim),
+                       ("grid_sample_nhwc", sampled, sampled_p)):
+        check(a.device == other and torch.equal(a, b),
+              f"{what} on {other} with {device} current is not bit-equal to its plain version")
+    return {"device": str(other), "current": str(device), "bit_equal": True}
+
+
+def parallel_phase(ctx, device) -> dict:
+    """`sharded_synthesize` over every visible card and over [cuda:0, cuda:0]
+    on 13 target frames of the main path's configuration."""
+    from ipercore_tpu_torch.parallel.mesh import local_devices
+
+    comp, gen, cache = ctx["comp"], ctx["gen"], ctx["cache"]
+    smpls = torch.as_tensor(ctx["smpls"][:PAR_FRAMES], device=device)
+    out = {"local": sharded_run(comp, gen, cache, smpls, local_devices()),
+           "cuda0_twice": sharded_run(comp, gen, cache, smpls, [device, device])}
+    if torch.cuda.device_count() > 1:
+        out["other_device"] = other_device_checks(comp.model, comp.assets, device, torch.device("cuda", 1))
+    else:
+        out["other_device"] = "not measured: one visible card"
+    out["launches"] = {k: out["local"]["launches"][k] + out["cuda0_twice"]["launches"][k]
+                       for k in out["local"]["launches"]}
+    return out
+
+
+def streaming_phase(ctx, device) -> dict:
+    """`StreamingSynthesizer` over 32 frames in chunks of 8 writing PNGs,
+    against `imitate_sequence` + `write_frames` on the same frames: frames/s
+    with the disk, the device's idle share, and the files byte for byte."""
+    from ipercore_tpu_torch.models import imitator as imit
+    from ipercore_tpu_torch.parallel.streaming import StreamingSynthesizer
+    from ipercore_tpu_torch.services.run_imitator import imitate_sequence, write_frames
+
+    comp, gen, cache = ctx["comp"], ctx["gen"], ctx["cache"]
+    smpls = imit.prepare_target_smpls(comp.model, cache, target_smpls(STREAM_FRAMES, 17))
+    synth = StreamingSynthesizer(comp, gen, cache, chunk=CHUNK)
+
+    def sequential(out_dir):
+        os.makedirs(out_dir)
+        return write_frames(imitate_sequence(comp, gen, cache, smpls, chunk=CHUNK, device=device), out_dir)
+
+    def timed(fn, root, name):
+        """(paths, frames/s, device busy ms, idle share) of a run after a warm-up run."""
+        fn(os.path.join(root, name + "_warm"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = fn(os.path.join(root, name))
+        torch.cuda.synchronize()
+        fps = len(paths) / (time.perf_counter() - t0)
+        times, wall = kernel_times_and_wall(lambda: fn(os.path.join(root, name + "_traced")))
+        busy = sum(us for us, _ in times) / 1e3
+        return paths, fps, busy, 1 - busy / wall, wall
+
+    with tempfile.TemporaryDirectory() as root:
+        zero_counts()
+        synth.run(smpls, os.path.join(root, "first"))
+        launches = read_counts()
+        s_paths, s_fps, s_busy, s_idle, s_wall = timed(lambda d: synth.run(smpls, d), root, "stream")
+        q_paths, q_fps, q_busy, q_idle, q_wall = timed(sequential, root, "sequence")
+        with deterministic_convolutions():
+            s_paths = synth.run(smpls, os.path.join(root, "stream_det"))
+            q_paths = sequential(os.path.join(root, "sequence_det"))
+        check([os.path.basename(p) for p in s_paths] == [os.path.basename(p) for p in q_paths]
+              == [f"pred_{i:08d}.png" for i in range(STREAM_FRAMES)], "streaming: the file names differ")
+        same = [open(a, "rb").read() == open(b, "rb").read() for a, b in zip(s_paths, q_paths)]
+        from ipercore_tpu_torch.utils.video import read_png
+
+        worst = max(int(np.abs(read_png(a).astype(int) - read_png(b).astype(int)).max())
+                    for a, b in zip(s_paths, q_paths))
+        check(all(same), f"streaming: {same.count(False)} PNG files differ from write_frames', "
+                         f"by up to {worst} levels")
+        png_bytes = sum(os.path.getsize(p) for p in s_paths)
+    n_chunks = STREAM_FRAMES // CHUNK
+    for k in ("raster_flows_csr", "grid_sample_nhwc"):
+        check(launches[k] == n_chunks, f"streaming: {k} launched {launches[k]} times for {n_chunks} chunks")
+    return {"frames": STREAM_FRAMES, "chunk": CHUNK, "io_workers": 4, "png_bytes": png_bytes,
+            "pngs_byte_equal": True, "launches": launches,
+            "streaming": {"frames_per_s_with_disk": s_fps, "device_busy_ms": s_busy,
+                          "traced_wall_ms": s_wall, "device_idle_share": s_idle},
+            "imitate_sequence_write_frames": {"frames_per_s_with_disk": q_fps, "device_busy_ms": q_busy,
+                                              "traced_wall_ms": q_wall, "device_idle_share": q_idle}}
+
+
+class RecordedDraws:
+    """A `Draws` whose every draw is kept, in order."""
+
+    def __init__(self, draws):
+        self.draws, self.device, self.log = draws, draws.device, []
+
+    def __getattr__(self, kind):
+        def draw(*args, **kw):
+            out = getattr(self.draws, kind)(*args, **kw)
+            self.log.append(out)
+            return out
+
+        return draw
+
+
+class ReplayedDraws:
+    """Hands back recorded draws in order, whatever is asked."""
+
+    def __init__(self, log, device):
+        self.log, self.device, self.used = log, torch.device(device), 0
+
+    def __getattr__(self, kind):
+        def draw(*args, **kw):
+            self.used += 1
+            return self.log[self.used - 1]
+
+        return draw
+
+
+def synth_data_phase(device) -> dict:
+    """`compose_scene` at `scripts/train_spin.py`'s defaults on the card with
+    the template body: K1 on its renders bit-equal to the plain raster, the
+    scene against the CPU fed the card's own draws and render, scenes/s."""
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.models.mesh import load_assets
+    from ipercore_tpu_torch.ops.dispatch import force_plain
+    from ipercore_tpu_torch.tools import synth_data as sd
+
+    model = smpl_mod.template_model(device=device)
+    assets = load_assets(model, device=device)
+    gen = torch.Generator(device=device)
+    scene_of = lambda draws: sd.compose_scene(draws, model, assets, SYNTH_BATCH, SYNTH_SIZE, **SYNTH_KW)
+    rec = RecordedDraws(sd.Draws(gen.manual_seed(0), device))
+    zero_counts()
+    scene = scene_of(rec)
+    launches = read_counts()
+    check(launches["raster_flows_csr"] == 1 and launches["raster_binning"] == 1
+          and sum(launches.values()) == 2, f"synth_data: launches {launches}")
+    for f in scene._fields:
+        check(bool(torch.isfinite(getattr(scene, f)).all()), f"synth_data: {f} is not finite")
+    coverage = float(scene.mask.mean())
+    check(0.01 < coverage < 0.6 and float(scene.img.abs().max()) <= 1.0,
+          f"synth_data: person coverage {coverage}, image max {float(scene.img.abs().max())}")
+
+    # the render: K1 against the plain raster on the card, on this batch's bodies
+    theta = scene.theta
+    details = smpl_mod.get_details(model, theta)
+    fim = sd.render_fim(model, theta, 2 * SYNTH_SIZE, f2uvs=assets.f2uvs, details=details)
+    with force_plain():
+        fim_p = sd.render_fim(model, theta, 2 * SYNTH_SIZE, f2uvs=assets.f2uvs, details=details)
+    check(torch.equal(fim, fim_p), "synth_data: render_fim differs from the plain raster")
+
+    # the rest of compose_scene on the CPU, fed the card's draws and render
+    cpu_model = smpl_mod.template_model(device="cpu")
+    cpu_assets = load_assets(cpu_model, device="cpu")
+    replay = ReplayedDraws([d.cpu() for d in rec.log], "cpu")
+    card_fim = fim.cpu()
+    real_render = sd.render_fim
+    sd.render_fim = lambda *a, **kw: card_fim
+    try:
+        cpu = sd.compose_scene(replay, cpu_model, cpu_assets, SYNTH_BATCH, SYNTH_SIZE, **SYNTH_KW)
+    finally:
+        sd.render_fim = real_render
+    check(replay.used == len(rec.log), f"synth_data: the CPU run drew {replay.used} of {len(rec.log)}")
+    # Every value of every field within 1e-5 of the field's largest value, but
+    # for one case: where the posterization's round((img + 1) / 2 * q) sits on
+    # a rounding boundary, the card's and the CPU's `pow` (the gamma just
+    # before it) differ in the last bit and round one step 2/q apart. Those
+    # image values must lie in a posterized scene, be at most one step apart
+    # and be rare. q and the posterization's coin are `photo_augment`'s 4th
+    # and 3rd draws from the end (then vignette, noise). `errors` is each
+    # field's largest difference over the largest value, for the image over
+    # the values that are not one step apart.
+    q, posterized = rec.log[-4].cpu().double(), rec.log[-3].cpu() < 0.4
+    errors, steps = {}, 0
+    for f in scene._fields:
+        a, b = getattr(scene, f).cpu().double(), getattr(cpu, f).double()
+        d, scale = (a - b).abs(), max(float(b.abs().max()), 1e-30)
+        off = d > 1e-5 * scale
+        if f == "img":
+            stepped = off & posterized.expand_as(d) & (d <= (2.0 / q).expand_as(d) + 1e-5 * scale)
+            check(not bool((off & ~stepped).any()) and int(stepped.sum()) <= 1e-4 * d.numel(),
+                  f"synth_data: {int(off.sum())} image values differ from the CPU's by more than "
+                  f"1e-5 of the largest, {int((off & ~stepped).sum())} of them not one "
+                  f"posterization step apart")
+            steps, d = int(stepped.sum()), d[~stepped]
+        else:
+            check(not bool(off.any()), f"synth_data: {int(off.sum())} values of {f} differ from the "
+                                       f"CPU's by up to {float(d.max()) / scale} of the largest, > 1e-5")
+        errors[f] = float(d.max()) / scale
+
+    ms = cuda_ms(lambda: scene_of(sd.Draws(gen, device)), reps=5, warmup=1)
+    return {"batch": SYNTH_BATCH, "scene_size": SYNTH_SIZE, "render_size": 2 * SYNTH_SIZE, **SYNTH_KW,
+            "draws": len(rec.log), "launches": launches, "render_fim_bit_equal": True,
+            "card_vs_cpu_max_err_of_largest": errors,
+            "card_vs_cpu_img_values_one_posterization_step_apart": steps, "person_coverage": coverage,
+            "texture_bank_images": int(sd._texture_bank().shape[0]),
+            "scene_batch_ms": ms, "scenes_per_s": SYNTH_BATCH / (ms / 1e3),
+            "host_syncs_per_batch": host_syncs(lambda: scene_of(sd.Draws(gen, device)))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["kernels"], default=None,
@@ -3033,6 +3405,10 @@ def main() -> int:
     emit("temporal", **temporal_phase(ctx, device))
     evaluated = evaluate_phase(ctx, device)
     emit("evaluate", **evaluated)
+    parallel = parallel_phase(ctx, device)
+    emit("parallel", **parallel)
+    streaming = streaming_phase(ctx, device)
+    emit("streaming", **streaming)
     del ctx
     services = services_phase(device)
     service_runs = {k: services.pop(k) for k in ("personalize", "imitate_personalized", "personalize_again")}
@@ -3051,6 +3427,8 @@ def main() -> int:
     emit("preprocess_mattes", **mattes)
     pipe = pipeline_phase(device, clip)
     emit("pipeline", **pipe)
+    synth = synth_data_phase(device)
+    emit("synth_data", **synth)
 
     # launches: K1-K3 on the main path's run, K4 on the table route's
     launches = dict(result["launches"], raster_flows_table=table["launches"]["raster_flows_table"])
@@ -3072,6 +3450,9 @@ def main() -> int:
         kernels[name]["launches_preprocess_3d"] = pre3["launches"][name]
         kernels[name]["launches_preprocess_mattes"] = mattes["launches"][name]
         kernels[name]["launches_pipeline"] = pipe["launches"][name]
+        kernels[name]["launches_parallel"] = parallel["launches"][name]
+        kernels[name]["launches_streaming"] = streaming["launches"][name]
+        kernels[name]["launches_synth_data"] = synth["launches"][name]
     line = {"kernels": [
         {"name": name, "replaces": REPLACES[name], "launches": launches[name],
          "ms": v["wrapper_ms"], **v}  # `ms`: the whole call, as a user of the wrapper pays it

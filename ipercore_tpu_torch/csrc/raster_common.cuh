@@ -115,16 +115,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
-// Streaming multiprocessors of the current device (persistent grids size by it).
+// Streaming multiprocessors of the current device (persistent grids size by
+// it), read on every launch: the wrappers make the inputs' device current, and
+// one process may launch on several devices. The runtime caches the attribute.
 inline int sm_count() {
-    static int n = 0;
-    if (n == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-        if (n <= 0) n = 1;
-    }
-    return n;
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
 }
 
 }  // namespace raster

@@ -18,11 +18,13 @@ Resizing is `resize_linear`, a copy of `jax.image.resize(..., "linear")`.
 """
 from __future__ import annotations
 
+import functools
 import os
 import struct
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ipercore_tpu_torch.services.process_info import ProcessInfo
 from ipercore_tpu_torch.utils import video as vid
@@ -47,18 +49,30 @@ def _linear_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
-def resize_linear(x: np.ndarray, shape: Sequence[int]) -> np.ndarray:
-    """`jax.image.resize(x, shape, "linear")` in numpy (float32): every axis
-    whose size changes is resampled with `_linear_weights`, in axis order."""
-    out = np.asarray(x, np.float32)
+@functools.lru_cache(maxsize=None)
+def _linear_weights_on(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """`_linear_weights(n_in, n_out)` on `device`, copied there once."""
+    return torch.as_tensor(_linear_weights(n_in, n_out), device=device)
+
+
+def resize_linear(x, shape: Sequence[int]):
+    """`jax.image.resize(x, shape, "linear")` of a float32 numpy array (in
+    numpy) or of a tensor (in torch, on its device): every axis whose size
+    changes is resampled with `_linear_weights`, in axis order."""
+    tensor = isinstance(x, torch.Tensor)
+    out = x if tensor else np.asarray(x, np.float32)
     if len(shape) != out.ndim:
         raise ValueError(f"resize_linear: shape {tuple(shape)} for an array of {out.ndim} dims")
     for axis, n_out in enumerate(shape):
         n_in = out.shape[axis]
         if n_in == n_out:
             continue
-        w = _linear_weights(n_in, int(n_out))
-        out = np.moveaxis(np.tensordot(out, w, axes=([axis], [0])), -1, axis)
+        if tensor:
+            w = _linear_weights_on(n_in, int(n_out), out.device)
+            out = torch.movedim(torch.tensordot(out, w, dims=([axis], [0])), -1, axis)
+        else:
+            w = _linear_weights(n_in, int(n_out))
+            out = np.moveaxis(np.tensordot(out, w, axes=([axis], [0])), -1, axis)
     return out
 
 

@@ -293,11 +293,23 @@ def synthesize_frames(
         preds (T, S, S, 3) composited frames in [-1, 1];
         masks (T, S, S, 1) predicted attention masks (1 = background).
     """
-    T = tgt_smpl.shape[0]
     tsf_inputs, Tst, _ = make_frame_inputs(
         comp, cache, tgt_smpl, offsets, links_ids, sample_dtype=compute_dtype,
         tst_stride=tst_stride)
+    return generate_frames(generator, cache, tsf_inputs, Tst, compute_dtype)
 
+
+@torch.no_grad()
+def generate_frames(
+    generator,
+    cache: SourceCache,
+    tsf_inputs: torch.Tensor,
+    Tst: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The generator and the composite over the background on a batch's
+    geometry (`make_frame_inputs`): preds (T, S, S, 3), masks (T, S, S, 1)."""
+    T = tsf_inputs.shape[0]
     rep = lambda x: x.expand((T,) + tuple(x.shape[1:]))  # (1, ns, ...) -> (T, ns, ...)
     enc = [rep(e) for e in cache.src_enc_outs]
     res = [rep(r) for r in cache.src_res_outs]

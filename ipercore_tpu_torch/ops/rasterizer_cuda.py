@@ -27,8 +27,10 @@ and now `listed_entries`, `wide_faces`); the stats stay on the device and are
 read, in one sync, only when a caller asks for them.
 
 A wrapper runs its plain version only for a CPU tensor (or inside
-`dispatch.force_plain()`); for a CUDA tensor it launches the kernel or raises.
-Each wrapper counts its launches in its `launches` attribute.
+`dispatch.force_plain()`); for a CUDA tensor it launches the kernel or raises,
+on that tensor's device and its current stream (`dispatch.kernel_stream`),
+whichever device is current. Each wrapper counts its launches in its
+`launches` attribute.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from typing import NamedTuple
 import torch
 
 from ipercore_tpu_torch.ops import rasterizer as rz
-from ipercore_tpu_torch.ops.dispatch import use_kernel
+from ipercore_tpu_torch.ops.dispatch import kernel_stream, use_kernel
 from ipercore_tpu_torch.utils import cuda_build
 
 # must equal TILE, E_CAP, ITEM in csrc/raster_common.cuh
@@ -151,10 +153,6 @@ def _check_faces(face_verts: torch.Tensor) -> None:
         raise TypeError(f"face_verts must be float32, got {face_verts.dtype}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 class RasterPlan(NamedTuple):
     """The binning of T frames into 16x16 tiles, n_tiles = g*g, g = ceil(S/16).
 
@@ -235,16 +233,17 @@ def prepare_raster(face_verts: torch.Tensor, size: int) -> RasterPlan:
     g = (size + TILE - 1) // TILE
     n_tiles = g * g
     dev = face_verts.device
-    geom = torch.empty((T, F, 16), dtype=torch.float32, device=dev)
     sizes = (T * F * 4, T * n_tiles + 2 * T + len(STAT_KEYS), T * n_tiles, T * n_tiles,
              T * (n_tiles + 1), T * F * E_CAP, T * F)
-    # frange first: its int4 rows need the buffer's 16-byte alignment
-    frange, zeroed, seg, cursor, items, ids, wide_ids = torch.split(
-        torch.empty(sum(sizes), dtype=torch.int32, device=dev), sizes)
-    err = _bin_lib().raster_bin_launch(
-        face_verts.data_ptr(), T, F, size, geom.data_ptr(), frange.data_ptr(), zeroed.data_ptr(),
-        seg.data_ptr(), cursor.data_ptr(), items.data_ptr(), ids.data_ptr(), wide_ids.data_ptr(),
-        _stream())
+    with kernel_stream(face_verts) as stream:
+        geom = torch.empty((T, F, 16), dtype=torch.float32, device=dev)
+        # frange first: its int4 rows need the buffer's 16-byte alignment
+        frange, zeroed, seg, cursor, items, ids, wide_ids = torch.split(
+            torch.empty(sum(sizes), dtype=torch.int32, device=dev), sizes)
+        err = _bin_lib().raster_bin_launch(
+            face_verts.data_ptr(), T, F, size, geom.data_ptr(), frange.data_ptr(),
+            zeroed.data_ptr(), seg.data_ptr(), cursor.data_ptr(), items.data_ptr(), ids.data_ptr(),
+            wide_ids.data_ptr(), stream)
     cuda_build.check_launch(err, "raster binning")
     prepare_raster.launches += 1
     n_counts = T * n_tiles
@@ -336,12 +335,13 @@ def launch_raster_flows(plan: RasterPlan, aux: torch.Tensor, T: int, F: int, siz
     place where they are launched and counted). `aux` must be contiguous f32
     on the GPU."""
     dev = plan.geom.device
-    fim = torch.empty((T, size, size), dtype=torch.int32, device=dev)
-    flows = torch.empty((T, size, size, J, 2), dtype=torch.float32, device=dev)
-    zbuf, zb_frames = _zbuf(T, size, dev)
-    err = _lib().raster_flows_launch(
-        *_plan_ptrs(plan), aux.data_ptr(), J * F * 6 if per_frame else 0, T, F, size, J,
-        zbuf.data_ptr(), zb_frames, fim.data_ptr(), flows.data_ptr(), _stream())
+    with kernel_stream(plan.geom, aux) as stream:
+        fim = torch.empty((T, size, size), dtype=torch.int32, device=dev)
+        flows = torch.empty((T, size, size, J, 2), dtype=torch.float32, device=dev)
+        zbuf, zb_frames = _zbuf(T, size, dev)
+        err = _lib().raster_flows_launch(
+            *_plan_ptrs(plan), aux.data_ptr(), J * F * 6 if per_frame else 0, T, F, size, J,
+            zbuf.data_ptr(), zb_frames, fim.data_ptr(), flows.data_ptr(), stream)
     cuda_build.check_launch(err, "raster_flows")
     raster_flows.launches += 1
     return fim, flows
@@ -393,12 +393,13 @@ def launch_raster_fim(plan: RasterPlan, N: int, F: int, size: int) -> rz.RasterO
     """Allocate the outputs and launch the walk and the fim/wim epilogue (the
     one place where they are launched and counted)."""
     dev = plan.geom.device
-    fim = torch.empty((N, size, size), dtype=torch.int32, device=dev)
-    wim = torch.empty((N, size, size, 3), dtype=torch.float32, device=dev)
-    zbuf, zb_frames = _zbuf(N, size, dev)
-    err = _lib().raster_fim_launch(
-        *_plan_ptrs(plan), N, F, size, zbuf.data_ptr(), zb_frames, fim.data_ptr(), wim.data_ptr(),
-        _stream())
+    with kernel_stream(plan.geom) as stream:
+        fim = torch.empty((N, size, size), dtype=torch.int32, device=dev)
+        wim = torch.empty((N, size, size, 3), dtype=torch.float32, device=dev)
+        zbuf, zb_frames = _zbuf(N, size, dev)
+        err = _lib().raster_fim_launch(
+            *_plan_ptrs(plan), N, F, size, zbuf.data_ptr(), zb_frames, fim.data_ptr(),
+            wim.data_ptr(), stream)
     cuda_build.check_launch(err, "raster_fim")
     raster_fim.launches += 1
     return rz.RasterOutput(fim=fim, wim=wim)
@@ -631,18 +632,19 @@ def prepare_table(face_verts: torch.Tensor, size: int, k: int = 2048) -> TablePl
     if T * F * E_CAP >= 2 ** 31 or T * n_tiles * k >= 2 ** 31:
         raise ValueError(f"T={T}, F={F}, k={k}: the binning's entries do not fit int32 offsets")
     dev = face_verts.device
-    geom = torch.empty((T, F, 16), dtype=torch.float32, device=dev)
     sizes = (T * F * 4, T * F, T * F, T * n_tiles + T + len(TABLE_STAT_KEYS) + 2, T * n_tiles,
              T * n_tiles, T * n_tiles, T * n_tiles, T * (n_tiles + 1), T * F * E_CAP + T * n_tiles)
-    # frange first: its int4 rows need the buffer's 16-byte alignment
-    frange, zkey, wide_ids, zeroed, seg, cursor, true_counts, kept, items, list_ids = torch.split(
-        torch.empty(sum(sizes), dtype=torch.int32, device=dev), sizes)
-    ids = torch.empty((T, n_tiles, k), dtype=torch.int32, device=dev)
-    err = _table_bin_lib().raster_table_bin_launch(
-        face_verts.data_ptr(), T, F, size, k, geom.data_ptr(), zkey.data_ptr(), frange.data_ptr(),
-        wide_ids.data_ptr(), zeroed.data_ptr(), seg.data_ptr(), cursor.data_ptr(),
-        true_counts.data_ptr(), kept.data_ptr(), items.data_ptr(), list_ids.data_ptr(),
-        ids.data_ptr(), _stream())
+    with kernel_stream(face_verts) as stream:
+        geom = torch.empty((T, F, 16), dtype=torch.float32, device=dev)
+        # frange first: its int4 rows need the buffer's 16-byte alignment
+        frange, zkey, wide_ids, zeroed, seg, cursor, true_counts, kept, items, list_ids = \
+            torch.split(torch.empty(sum(sizes), dtype=torch.int32, device=dev), sizes)
+        ids = torch.empty((T, n_tiles, k), dtype=torch.int32, device=dev)
+        err = _table_bin_lib().raster_table_bin_launch(
+            face_verts.data_ptr(), T, F, size, k, geom.data_ptr(), zkey.data_ptr(),
+            frange.data_ptr(), wide_ids.data_ptr(), zeroed.data_ptr(), seg.data_ptr(),
+            cursor.data_ptr(), true_counts.data_ptr(), kept.data_ptr(), items.data_ptr(),
+            list_ids.data_ptr(), ids.data_ptr(), stream)
     cuda_build.check_launch(err, "table binning")
     prepare_table.launches += 1
     bins = TableBins(ids, kept.view(T, n_tiles), true_counts.view(T, n_tiles), None)
@@ -792,13 +794,14 @@ def launch_raster_flows_table(plan: TablePlan, aux: torch.Tensor, size: int,
     T, F = plan.geom.shape[0], plan.geom.shape[1]
     k = plan.bins.ids.shape[-1]
     dev = plan.geom.device
-    fim = torch.empty((T, size, size), dtype=torch.int32, device=dev)
-    flows = torch.empty((T, size, size, J, 2), dtype=torch.float32, device=dev)
-    zbuf, zb_frames = _zbuf(T, size, dev)
-    err = _table_lib().raster_flows_table_launch(
-        plan.geom.data_ptr(), plan.bins.ids.data_ptr(), plan.bins.kept.data_ptr(),
-        plan.items.data_ptr(), aux.data_ptr(), T, F, size, J, k, zbuf.data_ptr(), zb_frames,
-        fim.data_ptr(), flows.data_ptr(), _stream())
+    with kernel_stream(plan.geom, aux) as stream:
+        fim = torch.empty((T, size, size), dtype=torch.int32, device=dev)
+        flows = torch.empty((T, size, size, J, 2), dtype=torch.float32, device=dev)
+        zbuf, zb_frames = _zbuf(T, size, dev)
+        err = _table_lib().raster_flows_table_launch(
+            plan.geom.data_ptr(), plan.bins.ids.data_ptr(), plan.bins.kept.data_ptr(),
+            plan.items.data_ptr(), aux.data_ptr(), T, F, size, J, k, zbuf.data_ptr(), zb_frames,
+            fim.data_ptr(), flows.data_ptr(), stream)
     cuda_build.check_launch(err, "raster_flows_table")
     raster_flows_table.launches += 1
     return fim, flows

@@ -14,7 +14,8 @@ read once, output written once).
 The plain version is explicit floor / 4-tap code with the kernel's arithmetic
 order, not `torch.nn.functional.grid_sample`, so it is independent of that
 library call. The wrapper runs it only for a CPU tensor (or inside
-`dispatch.force_plain()`); for a CUDA tensor it launches the kernel or raises.
+`dispatch.force_plain()`); for a CUDA tensor it launches the kernel or raises,
+on that tensor's device (`dispatch.kernel_stream`).
 `grid_sample_nhwc.launches` counts launches.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ import ctypes
 
 import torch
 
-from ipercore_tpu_torch.ops.dispatch import use_kernel
+from ipercore_tpu_torch.ops.dispatch import kernel_stream, use_kernel
 from ipercore_tpu_torch.utils import cuda_build
 
 
@@ -119,25 +120,26 @@ def grid_sample_nhwc(imgs: torch.Tensor, grids: torch.Tensor,
     out_ps = None if out is None else _pixel_stride(out)
     if out is not None and out_ps is None:
         raise ValueError(f"out must have its pixels at one stride, got strides {out.stride()}")
-    if out is None:
-        out = torch.empty((N, h, w, C), dtype=torch.float32, device=imgs.device)
-        out_ps = C
-    grid_ps = _pixel_stride(grids)
-    if grid_ps is None or grid_ps % 2 or grids.data_ptr() % 8:
-        grids, grid_ps = grids.contiguous(), 2
-    # one image broadcast over the batch (`expand`) is read in place, stride 0
-    shared = N == 1 or imgs.stride(0) == 0
-    if not shared:
-        imgs = imgs.contiguous()
-    elif imgs.stride()[1:] != (W * C, C, 1):
-        imgs = imgs[:1].contiguous().expand(N, H, W, C)
-    # the rgb4 path: a shared f32 RGB image, repacked to 4 channels per call
-    img4 = (torch.empty((H * W, 4), dtype=torch.float32, device=imgs.device)
-            if shared and C == 3 and imgs.dtype == torch.float32 else None)
-    err = _lib().grid_sample_nhwc_launch(
-        imgs.data_ptr(), int(imgs.dtype == torch.bfloat16), 0 if shared else H * W * C,
-        grids.data_ptr(), grid_ps, out.data_ptr(), out_ps, None if img4 is None else img4.data_ptr(),
-        N, H, W, C, h, w, torch.cuda.current_stream().cuda_stream)
+    with kernel_stream(imgs, grids) as stream:
+        if out is None:
+            out = torch.empty((N, h, w, C), dtype=torch.float32, device=imgs.device)
+            out_ps = C
+        grid_ps = _pixel_stride(grids)
+        if grid_ps is None or grid_ps % 2 or grids.data_ptr() % 8:
+            grids, grid_ps = grids.contiguous(), 2
+        # one image broadcast over the batch (`expand`) is read in place, stride 0
+        shared = N == 1 or imgs.stride(0) == 0
+        if not shared:
+            imgs = imgs.contiguous()
+        elif imgs.stride()[1:] != (W * C, C, 1):
+            imgs = imgs[:1].contiguous().expand(N, H, W, C)
+        # the rgb4 path: a shared f32 RGB image, repacked to 4 channels per call
+        img4 = (torch.empty((H * W, 4), dtype=torch.float32, device=imgs.device)
+                if shared and C == 3 and imgs.dtype == torch.float32 else None)
+        err = _lib().grid_sample_nhwc_launch(
+            imgs.data_ptr(), int(imgs.dtype == torch.bfloat16), 0 if shared else H * W * C,
+            grids.data_ptr(), grid_ps, out.data_ptr(), out_ps,
+            None if img4 is None else img4.data_ptr(), N, H, W, C, h, w, stream)
     cuda_build.check_launch(err, "grid_sample_nhwc")
     grid_sample_nhwc.launches += 1
     return out

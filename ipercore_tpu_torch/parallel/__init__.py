@@ -1,1 +1,3 @@
-"""Data parallelism over `torch.distributed` process groups."""
+"""Several devices: data-parallel training over `torch.distributed` process
+groups (`mesh`), frame-sharded inference driven by one process
+(`inference.sharded_synthesize`) and streaming synthesis (`streaming`)."""

@@ -62,7 +62,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "ipercore_tpu_torch.tools.preprocessor", "ipercore_tpu_torch.utils.keypoints",
               "ipercore_tpu_torch.tools.pose3d", "ipercore_tpu_torch.tools.deformers",
               "ipercore_tpu_torch.ops.attention", "ipercore_tpu_torch.tools.parsers",
-              "ipercore_tpu_torch.tools.inpaintors", "ipercore_tpu_torch.services.preprocess"):
+              "ipercore_tpu_torch.tools.inpaintors", "ipercore_tpu_torch.services.preprocess",
+              "ipercore_tpu_torch.parallel.inference", "ipercore_tpu_torch.parallel.streaming",
+              "ipercore_tpu_torch.tools.synth_data"):
         assert m in names
     code = (
         "import importlib, sys\n"
@@ -89,6 +91,14 @@ def test_sources_do_not_import(pattern):
     rx = re.compile(pattern, re.M)
     hits = [p for p in _python_sources() if rx.search(_read(p))]
     assert not hits, hits
+
+
+def test_kernels_launch_on_their_inputs_device():
+    """No source asks for the current stream without naming a device: a
+    kernel must launch on the stream of its inputs' device
+    (`dispatch.kernel_stream`), whichever device is current."""
+    rx = re.compile(r"current_stream\(\s*\)")
+    assert not [p for p in _python_sources() if rx.search(_read(p))]
 
 
 def test_chip_smoke_reads_no_asset_and_no_jax():
@@ -181,6 +191,8 @@ ENTRY_POINTS = [
     ("ipercore_tpu_torch.services.run_imitator", "run_imitator"),
     ("ipercore_tpu_torch.services.run_viewer", "run_viewer"),
     ("ipercore_tpu_torch.services.run_swapper", "run_swapper"),
+    ("ipercore_tpu_torch.parallel.mesh", "local_devices"),
+    ("ipercore_tpu_torch.tools.synth_data", "Draws"),
 ]
 
 
@@ -188,6 +200,17 @@ ENTRY_POINTS = [
 def test_entry_points_default_to_cuda(module, name):
     fn = getattr(__import__(module, fromlist=[name]), name)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_sharded_synthesize_defaults_to_every_cuda_device(monkeypatch):
+    """`sharded_synthesize(devices=None)` splits over `local_devices()`, the
+    visible CUDA devices; with none it raises, it does not fall back to the CPU."""
+    from ipercore_tpu_torch.parallel.inference import sharded_synthesize
+
+    assert inspect.signature(sharded_synthesize).parameters["devices"].default is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharded_synthesize(None, None, None, np.zeros((1, 85), np.float32))
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
