@@ -43,9 +43,13 @@ bit-equal to its plain version on the pipeline's batches. After `evaluate`:
 [cuda:0, cuda:0], each shard bit-equal to `synthesize_frames` of its frames;
 with a second card, K1-K3 on `cuda:1` while `cuda:0` is current) and
 `streaming` (`StreamingSynthesizer` over 32 frames writing PNGs, byte-equal to
-`imitate_sequence` + `write_frames`); last, `synth_data` (`compose_scene` at
+`imitate_sequence` + `write_frames`); `synth_data` (`compose_scene` at
 `scripts/train_spin.py`'s defaults: K1 bit-equal on its renders, the scene
-against the CPU fed the card's draws).
+against the CPU fed the card's draws); last, `perception_train` (the six
+training drivers of `ipercore_tpu_torch/scripts/` at the JAX drivers'
+published defaults: K1, and K3 in the generator's, bit-equal to their plain
+versions on the trainers' own batches, timed steps, one step against the
+CPU, SPIN's statistics unchanged, each saved file loaded by its consumer).
 Reads no weight file: every network is seeded (the GMM pose prior is data,
 tracked in the repository).
 Every phase prints one JSON line; any failed check raises, so the exit code
@@ -3362,6 +3366,321 @@ def synth_data_phase(device) -> dict:
             "host_syncs_per_batch": host_syncs(lambda: scene_of(sd.Draws(gen, device)))}
 
 
+# ---------------------------------------------------------------------------
+# perception_train: the six training drivers of `ipercore_tpu_torch/scripts/`
+# at their published defaults, K1 (and K3 in the generator's) on every batch
+# ---------------------------------------------------------------------------
+
+PT_WARMUP, PT_STEPS = 2, 10
+PT_CPU_ROWS = 2  # rows of a card batch that the CPU's step takes (1 for the generator's)
+# the JAX drivers' published defaults: batch per step, scene sizes
+PT_BATCH = {"vgg": 8, "faceloss": 12, "spin": 16, "openpose": 8, "person_seg": 8, "lwg_pretrain": 2}
+PT_SCENE, PT_FACE_SCENE = 256, 192
+
+
+@contextlib.contextmanager
+def captured_rasters():
+    """Within the block every K1 / K3 call of the trainers is kept with its
+    inputs and outputs; the kernels launch (and count) as usual."""
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+    from ipercore_tpu_torch.scripts import train_person_seg
+    from ipercore_tpu_torch.tools import synth_data as sd
+
+    from ipercore_tpu_torch.ops import rasterizer as rz
+
+    # K3 is reached through `rasterizer.rasterize_batch` (the composition's
+    # `render_fim_wim`), which calls `rasterizer_cuda.raster_fim` itself, so
+    # the wrapper and its launch count stay as they are
+    calls, k1, k3 = [], rc.raster_flows, rz.rasterize_batch
+
+    def flows(fv, aux, size, *a, **kw):
+        out = k1(fv, aux, size, *a, **kw)
+        calls.append(("raster_flows_csr", fv, aux, size, out))
+        return out
+
+    def fim(fv, size, *a, **kw):
+        out = k3(fv, size, *a, **kw)
+        calls.append(("raster_fim", fv, None, size, out))
+        return out
+
+    saved = (sd.raster_flows, train_person_seg.raster_flows, rz.rasterize_batch)
+    sd.raster_flows = train_person_seg.raster_flows = flows
+    rz.rasterize_batch = fim
+    try:
+        yield calls
+    finally:
+        sd.raster_flows, train_person_seg.raster_flows, rz.rasterize_batch = saved
+
+
+def rasters_bit_equal(calls, what: str) -> dict:
+    """Each kept K1 / K3 call against its plain version on the same inputs,
+    bit for bit: {kernel: calls checked}."""
+    from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+
+    seen = {}
+    for name, fv, aux, size, out in calls:
+        if name == "raster_flows_csr":
+            ref = rc.raster_flows_plain(fv, aux, size)
+            raster_agreement(out[0], ref[0], out[1], ref[1], f"{what}: K1", bit_equal=True)
+        else:
+            ref = rc.raster_fim_plain(fv, size)
+            raster_agreement(out.fim, ref.fim, out.wim, ref.wim, f"{what}: K3", bit_equal=True)
+        seen[name] = seen.get(name, 0) + 1
+    return seen
+
+
+def to_device(x, device):
+    """Tensors of a nested tuple / dict / NamedTuple moved to `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_device(v, device) for v in x))
+    if isinstance(x, tuple):
+        return tuple(to_device(v, device) for v in x)
+    return x
+
+
+def rows_of(batch, n: int):
+    """The first n rows of every tensor of a batch (tuple or dict)."""
+    if isinstance(batch, dict):
+        return {k: v[:n] for k, v in batch.items()}
+    return tuple(v[:n] if v.dim() > 1 else v for v in batch)
+
+
+def card_vs_cpu(net, loss_of, batch, what: str) -> dict:
+    """One step's loss and gradients on the card against the CPU from the
+    same parameters and batch rows: loss within 1e-4 relative, gradients
+    within 1 % (L2 over all parameters)."""
+    import copy
+
+    from ipercore_tpu_torch.models.imitator import reference_precision
+    from ipercore_tpu_torch.scripts import _common as cm
+
+    with reference_precision():
+        lc = loss_of(net, batch)[0]
+        gc = cm.grads_of(net, lc)
+    net_cpu = copy.deepcopy(net).cpu()
+    lp = loss_of(net_cpu, to_device(batch, "cpu"))[0]
+    gp = cm.grads_of(net_cpu, lp)
+    g1 = torch.cat([gc[k].detach().reshape(-1).cpu() for k in gp]).double()
+    g2 = torch.cat([gp[k].detach().reshape(-1) for k in gp]).double()
+    out = {"rows": int(next(iter(batch.values() if isinstance(batch, dict) else batch)).shape[0]),
+           "loss_card": float(lc), "loss_cpu": float(lp),
+           "loss_rel_diff": abs(float(lc) - float(lp)) / max(abs(float(lp)), 1e-12),
+           "grad_l2_rel": float((g1 - g2).norm() / g2.norm())}
+    check(out["loss_rel_diff"] <= 1e-4 and out["grad_l2_rel"] <= 1e-2, f"{what}: card vs CPU {out}")
+    return out
+
+
+def timed_trainer(what: str, iterate, make, rows: int) -> dict:
+    """Warm-up, then PT_STEPS iterations (batch + step) by CUDA events; the
+    batch alone (`make`); peak memory, host syncs and device time by kind of
+    kernel (profiler) of one iteration."""
+    for _ in range(PT_WARMUP):
+        iterate()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(PT_STEPS):
+        loss, aux = iterate()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / PT_STEPS
+    (loss, aux), peak = peak_gib_of(iterate)
+    losses = {"loss": float(loss), **{k: float(v) for k, v in aux.items()}}
+    check(all(np.isfinite(v) for v in losses.values()), f"{what}: losses not finite {losses}")
+    kinds = device_breakdown(iterate)
+    busy = {k: v for k, v in kinds.items() if k != "top"}
+    return {"step_ms": step_ms, "batch_ms": cuda_ms(make, reps=PT_STEPS, warmup=0),
+            "scenes_per_s": rows / (step_ms / 1e3), "peak_memory_gib": peak,
+            "host_syncs_per_step": host_syncs(iterate), "device_ms_per_step": busy,
+            "device_idle_share": 1 - busy["busy"] / step_ms, "device_top_kernels": kinds["top"][:4],
+            "losses": losses}
+
+
+def moved(before: dict, after: dict) -> float:
+    return max(float((after[k].detach() - before[k]).abs().max()) for k in before)
+
+
+def saved_loads(module, save, device) -> dict:
+    """The trainer's file, written and loaded strictly by its consumer."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, module.WEIGHTS_NAME)
+        save(path)
+        consumer = module.consumer(path, device)
+        return {"file": module.WEIGHTS_NAME, "bytes": os.path.getsize(path),
+                "consumer": type(consumer).__name__, "loads_strictly": True}
+
+
+def simple_trainer(what: str, module, net, tx, make, loss_of, rows: int, device, step_kw=None,
+                   frames: int = None, save=None) -> dict:
+    """The run of a trainer whose state is one module and its Adam state:
+    first iteration (launches, K1 bit-equal on its renders), timing, moved
+    parameters, card against CPU, the saved file in its consumer."""
+    from ipercore_tpu_torch.scripts import _common as cm
+
+    opt = [cm.init_state(tx, net)]
+    before = {k: v.detach().clone() for k, v in net.named_parameters()}
+
+    def step(batch):
+        opt[0], loss, aux = module.train_step(net, tx, opt[0], batch, **(step_kw or {}))
+        return loss, aux
+
+    launches = read_counts()
+    with captured_rasters() as calls:
+        step(make())
+    launches = {k: v - launches[k] for k, v in read_counts().items()}
+    bit_equal = rasters_bit_equal(calls, what)
+    check(launches["raster_flows_csr"] >= 1 and bit_equal.get("raster_flows_csr") == launches["raster_flows_csr"],
+          f"{what}: K1 launches {launches}, checked {bit_equal}")
+    out = {"launches_per_step": launches, "bit_equal_calls": bit_equal,
+           **timed_trainer(what, lambda: step(make()), make, frames or rows)}
+    out["param_max_move"] = moved(before, dict(net.named_parameters()))
+    check(out["param_max_move"] > 0, f"{what}: the parameters did not move")
+    out["card_vs_cpu"] = card_vs_cpu(net, loss_of, rows_of(make(), PT_CPU_ROWS), what)
+    out["saved"] = saved_loads(module, save or (lambda p: module.save(p, net)), device)
+    return out
+
+
+def perception_train_phase(device) -> dict:
+    """The six trainers at the JAX drivers' published defaults, each from a
+    CUDA generator and seeded weights on the template body."""
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.models.mesh import load_assets
+    from ipercore_tpu_torch.scripts import _common as cm
+    from ipercore_tpu_torch.scripts import (train_faceloss, train_lwg_pretrain, train_openpose,
+                                            train_person_seg, train_spin, train_vgg)
+    from ipercore_tpu_torch.tools import synth_data as sd
+
+    t0 = time.perf_counter()
+    model = smpl_mod.template_model(device=device)
+    assets = load_assets(model, device=device)
+    cpu_model = smpl_mod.template_model(device="cpu")
+    draws = lambda seed: sd.Draws(torch.Generator(device=device).manual_seed(seed), device)
+    out = {}
+    zero_counts()
+    B, S = PT_BATCH, PT_SCENE
+    # VGG perceptual: batch 8 at 256² (K1 at 512²)
+    d = draws(42)
+    out["vgg"] = simple_trainer("perception_train vgg", train_vgg, train_vgg.build(S, device), cm.adam(2e-4),
+                                lambda: train_vgg.make_batch(d, model, assets, B["vgg"], S),
+                                train_vgg.loss_fn, B["vgg"], device)
+    # face: 12 identities, two views at 192² (K1 at 384²)
+    d, n_batch = draws(555), [0]
+
+    def face_batch():
+        n_batch[0] += 1
+        return train_faceloss.make_batch(d, lambda: draws(10_000 + n_batch[0]), model, assets,
+                                         B["faceloss"], PT_FACE_SCENE)
+
+    out["faceloss"] = simple_trainer("perception_train faceloss", train_faceloss, train_faceloss.build(device),
+                                     cm.adam(1e-4, clip=1.0), face_batch, train_faceloss.loss_fn, B["faceloss"],
+                                     device, frames=2 * B["faceloss"])
+    # SPIN: batch 16 at 256² resized to 224, batch norm statistics frozen
+    d = draws(123)
+    net = train_spin.build(device)
+    stats = {k: v.detach().clone() for k, v in net.named_parameters() if k in train_spin.frozen_stats(net)}
+    models = {"cuda": model, "cpu": cpu_model}
+    out["spin"] = simple_trainer(
+        "perception_train spin", train_spin, net, train_spin.optimizer(net, 3e-4),
+        lambda: train_spin.make_batch(d, model, assets, B["spin"], S, studio_frac=0.35, garment_frac=0.5,
+                                      natural_frac=0.65),
+        lambda m, b: train_spin.loss_fn(m, b, models[b[0].device.type]), B["spin"], device,
+        step_kw={"model": model})
+    params = dict(net.named_parameters())
+    check(all(torch.equal(params[k], v) for k, v in stats.items()), "perception_train spin: statistics moved")
+    out["spin"]["frozen_statistics"] = len(stats)
+    out["spin"]["statistics_bit_unchanged"] = True
+    # Body-25: batch 8 at 256² resized to 224, motion blur 0.5
+    d, r = draws(321), train_openpose.Recipe(scene_size=S)
+    net = train_openpose.build(device)
+    out["openpose"] = simple_trainer("perception_train openpose", train_openpose, net, cm.adam(2e-4, clip=1.0),
+                                     lambda: train_openpose.make_batch(d, model, assets, B["openpose"], r),
+                                     train_openpose.loss_fn, B["openpose"], device,
+                                     save=lambda p: train_openpose.save(p, net, r.input_size))
+    # person segmenter + matting refiner: batch 8 at 256², K1 called directly at 512²
+    d = draws(7)
+    nets = train_person_seg.build(device)
+    out["person_seg"] = simple_trainer("perception_train person_seg", train_person_seg, nets, cm.adam(2e-4),
+                                       lambda: train_person_seg.make_batch(d, model, assets, B["person_seg"], S),
+                                       lambda m, b: train_person_seg.loss_fn(m.pair(), b), B["person_seg"], device)
+    out["lwg_pretrain"] = lwg_pretrain_run(model, assets, cpu_model, draws(1234), device)
+    # every launch of the phase: each trainer's iterations, and the batches
+    # of its card-vs-CPU check
+    out["launches"] = read_counts()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def lwg_pretrain_run(model, assets, cpu_model, d, device) -> dict:
+    """The generator's pretraining step at the driver's defaults (batch 2
+    identities of 2 sources + 2 targets at 256², AttLWB-SPADE at published
+    width, `patch_global_body_head`, VGG19, Sphere20a, aug-bg, bf16 autocast):
+    K1 on its renders and K3 in its composition bit-equal, timing, and one
+    f32 step on the card against the CPU on the first identity."""
+    from ipercore_tpu_torch.models.mesh import load_assets
+    from ipercore_tpu_torch.scripts import train_lwg_pretrain as L
+    from ipercore_tpu_torch.trainers import lwg_trainer as T
+
+    what = "perception_train lwg_pretrain"
+    B, S = PT_BATCH["lwg_pretrain"], PT_SCENE
+    rig = L.Rig(model, assets, S, device)
+    state = [rig.state()]
+    start = state[0].params_G
+
+    def make():
+        return L.make_identity_batch(d, model, assets, B, S)
+
+    def iterate():
+        state[0], metrics = L.train_step(rig, state[0], make())
+        return metrics["g_total"], metrics
+
+    launches = read_counts()
+    with captured_rasters() as calls:
+        iterate()
+    launches = {k: v - launches[k] for k, v in read_counts().items()}
+    bit_equal = rasters_bit_equal(calls, what)
+    check(launches["raster_flows_csr"] == 1 == bit_equal.get("raster_flows_csr")
+          and launches["raster_fim"] == 2 == bit_equal.get("raster_fim"),
+          f"{what}: launches {launches}, checked {bit_equal}")
+    out = {"launches_per_step": launches, "bit_equal_calls": bit_equal, "compute_dtype": rig.cfg.compute_dtype,
+           **timed_trainer(what, iterate, make, 4 * B)}
+    out["param_max_move"] = moved(start, state[0].params_G)
+    check(out["param_max_move"] > 0 and int(state[0].opt_G.count) == int(state[0].step),
+          f"{what}: G did not move or a step was skipped")
+
+    # one f32 step from the same state on the first identity, card and CPU, both
+    # on the card's composition: SMPL's LBS rounds a vertex by an ulp otherwise
+    # on the CPU, which moves silhouette pixels and the D term by ~1e-3 (the
+    # composition's own kernel, K3, is held bit-equal above)
+    batch = rows_of(make(), 1)
+    f32 = rig.cfg._replace(compute_dtype="float32")
+    ns, m = 2, batch["masks"]
+    with torch.no_grad():
+        composed = T.fc.forward(rig.comp, batch["images"][:, :ns], batch["images"][:, ns:],
+                                batch["smpls"][:, :ns], batch["smpls"][:, ns:], src_mask=m[:, :ns],
+                                ref_mask=m[:, ns:])
+    cpu_rig = L.Rig(cpu_model, load_assets(cpu_model, device="cpu"), S, "cpu", "float32")
+    forward = T.fc.forward
+    try:
+        T.fc.forward = lambda *a, **k: composed
+        card_state, card_m = T.train_step(state[0], batch, rig.comp, rig.gen, rig.dis, rig.vgg, rig.face, f32)
+        T.fc.forward = lambda *a, **k: to_device(composed, "cpu")
+        cpu_state, cpu_m = T.train_step(to_device(state[0], "cpu"), to_device(batch, "cpu"), cpu_rig.comp,
+                                        cpu_rig.gen, cpu_rig.dis, cpu_rig.vgg, cpu_rig.face, f32)
+    finally:
+        T.fc.forward = forward
+    rel = {k: abs(float(card_m[k]) - float(cpu_m[k])) / max(abs(float(cpu_m[k])), 1e-6) for k in cpu_m}
+    check(max(rel.values()) <= 1e-4, f"{what}: card vs CPU losses {rel}")
+    out["card_vs_cpu"] = {"rows": 1, "loss_rel_diff": rel,
+                          "state": state_agreement(to_device(card_state, "cpu"), cpu_state, f32.lr_g,
+                                                   f"{what} card vs CPU")}
+    out["saved"] = saved_loads(L, lambda p: L.save(p, rig, state[0].params_G), device)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["kernels"], default=None,
@@ -3429,6 +3748,8 @@ def main() -> int:
     emit("pipeline", **pipe)
     synth = synth_data_phase(device)
     emit("synth_data", **synth)
+    trainers = perception_train_phase(device)
+    emit("perception_train", **trainers)
 
     # launches: K1-K3 on the main path's run, K4 on the table route's
     launches = dict(result["launches"], raster_flows_table=table["launches"]["raster_flows_table"])
@@ -3453,6 +3774,7 @@ def main() -> int:
         kernels[name]["launches_parallel"] = parallel["launches"][name]
         kernels[name]["launches_streaming"] = streaming["launches"][name]
         kernels[name]["launches_synth_data"] = synth["launches"][name]
+        kernels[name]["launches_perception_train"] = trainers["launches"][name]
     line = {"kernels": [
         {"name": name, "replaces": REPLACES[name], "launches": launches[name],
          "ms": v["wrapper_ms"], **v}  # `ms`: the whole call, as a user of the wrapper pays it

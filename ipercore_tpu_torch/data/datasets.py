@@ -68,7 +68,7 @@ def resize_linear(x, shape: Sequence[int]):
         if n_in == n_out:
             continue
         if tensor:
-            w = _linear_weights_on(n_in, int(n_out), out.device)
+            w = _linear_weights_on(n_in, int(n_out), out.device).to(out.dtype)
             out = torch.movedim(torch.tensordot(out, w, dims=([axis], [0])), -1, axis)
         else:
             w = _linear_weights(n_in, int(n_out))

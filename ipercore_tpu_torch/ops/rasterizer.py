@@ -75,8 +75,13 @@ def verts_to_faces(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
 
 
 def _pixel_centers(size: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """(S*S, 3) homogeneous pixel-centre coordinates in NDC (x, y, 1)."""
-    coords = (2.0 * torch.arange(size, dtype=dtype, device=device) + 1.0 - size) / size
+    """(S*S, 3) homogeneous pixel-centre coordinates in NDC (x, y, 1).
+
+    Computed on the CPU and moved: PyTorch's CUDA division by a scalar
+    multiplies by its rounded reciprocal, which moves the centres by an ulp
+    where S is not a power of two (at 384 the plain raster on the card then
+    missed the CPU's, and K1's, face at shared edges)."""
+    coords = ((2.0 * torch.arange(size, dtype=dtype) + 1.0 - size) / size).to(device)
     ys, xs = torch.meshgrid(coords, coords, indexing="ij")
     return torch.stack([xs.reshape(-1), ys.reshape(-1), torch.ones(size * size, dtype=dtype, device=device)], dim=-1)
 

@@ -611,7 +611,7 @@ def body25_from_cocoplus(j2d_coco: torch.Tensor) -> tuple[torch.Tensor, np.ndarr
     The six unmapped Body-25 channels (toes and heels, 19-24) are invalid."""
     from ipercore_tpu_torch.tools.pose2d import BODY25_TO_COCOPLUS19
 
-    m = torch.as_tensor(np.asarray(BODY25_TO_COCOPLUS19), device=j2d_coco.device).long()
+    m = torch.as_tensor(np.asarray(BODY25_TO_COCOPLUS19)).to(j2d_coco.device, non_blocking=True).long()
     out = torch.zeros((j2d_coco.shape[0], 25, 2), dtype=j2d_coco.dtype, device=j2d_coco.device)
     out[:, m, :] = j2d_coco
     valid = np.zeros((25,), np.float32)
@@ -658,7 +658,7 @@ def _pose2d_targets(joints_ndc: torch.Tensor, valid: np.ndarray, hm_size: int, s
     B = px.shape[0]
     r = torch.arange(hm_size, dtype=torch.float32, device=dev)
     yy, xx = torch.meshgrid(r, r, indexing="ij")
-    heatmaps = _heatmaps(px, torch.as_tensor(valid, device=dev)[None, :, None, None], xx, yy, sigma)
+    heatmaps = _heatmaps(px, torch.as_tensor(valid).to(dev, non_blocking=True)[None, :, None, None], xx, yy, sigma)
     hm_weight = np.concatenate([valid, np.ones((1,), np.float32)])
     pafs = torch.zeros((B, n_paf_ch, hm_size, hm_size), device=dev)
     paf_weight = np.zeros((n_paf_ch,), np.float32)
@@ -693,7 +693,7 @@ def make_pose2d_targets_b25(b25_ndc: torch.Tensor, valid_b: torch.Tensor, hm_siz
     heatmaps = _heatmaps(px, valid_b[:, :, None, None], xx, yy, sigma)
     prod = np.zeros((25,), np.float32)
     prod[np.asarray(BODY25_TO_COCOPLUS19)] = 1.0
-    prod_t = torch.as_tensor(prod, device=dev)
+    prod_t = torch.as_tensor(prod).to(dev, non_blocking=True)
     bg_w = torch.prod(torch.where(prod_t > 0, valid_b, torch.ones_like(valid_b)), dim=1)
     hm_w = torch.cat([valid_b, bg_w[:, None]], dim=1)  # (B, 26)
     pafs = torch.zeros((B, 52, S, S), device=dev)
@@ -730,6 +730,6 @@ def make_pose2d_targets_coco18(j2d_coco: torch.Tensor, hm_size: int, sigma: floa
     (channel 18 = background) + (B, h, h, 38) PAFs."""
     from ipercore_tpu_torch.tools.pose2d_decode import COCO18_LIMBS, COCO18_PAF_IDS
 
-    j18 = j2d_coco[:, torch.as_tensor(COCO18_FROM_COCOPLUS, device=j2d_coco.device).long()]
+    j18 = j2d_coco[:, torch.as_tensor(COCO18_FROM_COCOPLUS).to(j2d_coco.device, non_blocking=True).long()]
     valid = np.ones((18,), np.float32)
     return _pose2d_targets(j18, valid, hm_size, sigma, COCO18_LIMBS, COCO18_PAF_IDS, 38)

@@ -125,12 +125,20 @@ class Adam(NamedTuple):
     apply_if_finite(MAX_CONSECUTIVE_ERRORS), updates applied. The defaults are
     the trainers' chain; `Adam(lr, grad_clip=0, b1=0.9, skip_nonfinite=False)`
     is a plain `optax.adam(lr)` (no clip, no skipped steps), which the 3D fits
-    of preprocessing run."""
+    of preprocessing run.
+
+    `frozen` names parameters the update leaves bit-unchanged, as optax's
+    clip -> masked(adam) chain with them masked out is meant to (SPIN's batch
+    norm statistics): their gradients still count in the global norm the clip
+    reads, and their moments stay zero. (optax 0.2's `masked` passes a
+    masked-out gradient through as the update, so `apply_updates` adds it;
+    the port does not.) Empty, nothing changes."""
 
     lr: Union[float, Callable[[torch.Tensor], torch.Tensor]]
     grad_clip: float = 10.0
     b1: float = B1
     skip_nonfinite: bool = True
+    frozen: frozenset = frozenset()
 
     def init(self, params: Params) -> AdamState:
         dev = next(iter(params.values())).device
@@ -178,6 +186,10 @@ class Adam(NamedTuple):
         lr = self.lr(state.count) if callable(self.lr) else self.lr
         upd = torch._foreach_mul(upd, -lr)
         p_new = torch._foreach_add(p, upd)
+        if self.frozen:
+            keep = [k in self.frozen for k in names]
+            pick_kept = lambda new, old: [o if f else n_ for n_, o, f in zip(new, old, keep)]
+            p_new, mu_new, nu_new = pick_kept(p_new, p), pick_kept(mu_new, mu), pick_kept(nu_new, nu)
 
         if not self.skip_nonfinite:
             return dict(zip(names, p_new)), state._replace(

@@ -22,6 +22,8 @@ from ipercore_tpu_torch.utils import cuda_build
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(ROOT, "ipercore_tpu_torch")
+DRIVERS = ("train_lwg_pretrain", "train_vgg", "train_faceloss", "train_spin", "train_openpose",
+           "train_person_seg")
 WEIGHTS = ["esrgan", "faceloss", "inpaintor", "inpaintor_refine", "lwg_pretrained_G",
            "matting_gca", "mobilenet_openpose", "openpose", "person_seg", "schp", "spin",
            "vgg_perceptual"]
@@ -64,7 +66,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "ipercore_tpu_torch.ops.attention", "ipercore_tpu_torch.tools.parsers",
               "ipercore_tpu_torch.tools.inpaintors", "ipercore_tpu_torch.services.preprocess",
               "ipercore_tpu_torch.parallel.inference", "ipercore_tpu_torch.parallel.streaming",
-              "ipercore_tpu_torch.tools.synth_data"):
+              "ipercore_tpu_torch.tools.synth_data", *(f"ipercore_tpu_torch.scripts.{d}" for d in DRIVERS),
+              "ipercore_tpu_torch.scripts._common", "ipercore_tpu_torch.scripts.eval_real_photos"):
         assert m in names
     code = (
         "import importlib, sys\n"
@@ -84,10 +87,12 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("pattern", [r"^\s*(import|from)\s+jax\b", r"^\s*(import|from)\s+flax\b",
                                      r"^\s*(import|from)\s+ipercore_tpu(\.|\s)",
-                                     r"^\s*(import|from)\s+triton\b"])
+                                     r"^\s*(import|from)\s+triton\b",
+                                     r"^\s*(import|from)\s+(scripts|eval_real_photos)\b"])
 def test_sources_do_not_import(pattern):
-    """No source line imports jax, flax, the JAX package or (at module level
-    or anywhere else on this slice) triton."""
+    """No source line imports jax, flax, the JAX package, the JAX drivers of
+    the root `scripts/` (the port's drivers keep their own copies) or (at
+    module level or anywhere else on this slice) triton."""
     rx = re.compile(pattern, re.M)
     hits = [p for p in _python_sources() if rx.search(_read(p))]
     assert not hits, hits
@@ -200,6 +205,20 @@ ENTRY_POINTS = [
 def test_entry_points_default_to_cuda(module, name):
     fn = getattr(__import__(module, fromlist=[name]), name)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_training_drivers_default_to_the_card_and_refuse_without_one(monkeypatch, driver):
+    """`python -m ipercore_tpu_torch.scripts.<driver>` trains on `cuda` unless
+    `--device cpu` is given; without a card it raises before any work, it
+    does not fall back to the CPU."""
+    import importlib
+
+    mod = importlib.import_module(f"ipercore_tpu_torch.scripts.{driver}")
+    assert "--device" in inspect.getsource(mod.main) and 'default="cuda"' in inspect.getsource(mod.main)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--smoke"])
 
 
 def test_sharded_synthesize_defaults_to_every_cuda_device(monkeypatch):
