@@ -49,7 +49,15 @@ against the CPU fed the card's draws); last, `perception_train` (the six
 training drivers of `ipercore_tpu_torch/scripts/` at the JAX drivers'
 published defaults: K1, and K3 in the generator's, bit-equal to their plain
 versions on the trainers' own batches, timed steps, one step against the
-CPU, SPIN's statistics unchanged, each saved file loaded by its consumer).
+CPU, SPIN's statistics unchanged, each saved file loaded by its consumer);
+then `drivers` (the SCHP, inpaintor and ESRGAN trainers at the JAX drivers'
+published defaults with their pools or scenes through K1 bit-equal, one step
+each against the CPU, the inpaintor's stage 2 through the fused contextual
+attention's backward against the plain route; `accuracy_cost` at 512² with
+K1-K3 bit-equal; `verify_perception`, `fit_gmm_prior`, the three
+pseudo-labellers on clip frames written as PNGs, `visual_processed_data` with
+K3 bit-equal, and `self_imitation` saying that it has no clip). The last
+phase lines give each phase's seconds (`timing`).
 Reads no weight file: every network is seeded (the GMM pose prior is data,
 tracked in the repository).
 Every phase prints one JSON line; any failed check raises, so the exit code
@@ -59,6 +67,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import io
 import json
 import os
 import re
@@ -71,6 +81,7 @@ import warnings
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 # Peak rates of one H100 SXM (NVIDIA data sheet) used for the bounds.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -91,10 +102,16 @@ TABLE_K = 2048  # faces per 8x128 tile of the table route, the JAX default
 # the personalization default discriminator (`patch_global`) at its published width
 DIS_CFG = {"ndf": 64, "n_layers": 4, "max_nf_mult": 8, "use_sigmoid": False}
 NT = 1  # target frames per train step (`time_step`)
-TRAIN_WARMUP, TRAIN_STEPS, SERVICE_ITERS = 3, 20, 4
+TRAIN_WARMUP, TRAIN_STEPS, SERVICE_ITERS = 3, 10, 4
+
+
+PHASE_S: dict = {}  # seconds from one phase line to the next
+_LAST_EMIT = [time.perf_counter()]
 
 
 def emit(phase: str, **fields) -> None:
+    now = time.perf_counter()
+    PHASE_S[phase], _LAST_EMIT[0] = now - _LAST_EMIT[0], now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -724,8 +741,9 @@ def kernel_kind(key: str) -> str:
     return "other"
 
 
-def device_breakdown(fn) -> dict:
-    """Device milliseconds of one `fn()` by kind of kernel, from torch.profiler."""
+def device_breakdown(fn, hand_written: bool = True) -> dict:
+    """Device milliseconds of one `fn()` by kind of kernel, from torch.profiler
+    (`hand_written`: `fn` launches one of the four kernels)."""
     kinds = {"convolutions": 0.0, "kernels": 0.0, "binning_sort_scan": 0.0, "other": 0.0}
     by_name = []
     for us, key in kernel_times(fn):
@@ -733,7 +751,7 @@ def device_breakdown(fn) -> dict:
         kinds[kernel_kind(key)] += us
     out = {k: v / 1e3 for k, v in kinds.items()}
     out["busy"] = sum(out.values())
-    check(out["kernels"] > 0 and out["convolutions"] > 0,
+    check((out["kernels"] > 0 or not hand_written) and out["convolutions"] > 0,
           "the profiler recorded no device time for the kernels or the convolutions")
     out["top"] = [{"ms": ms, "kernel": k} for ms, k in sorted(by_name, reverse=True)[:8]]
     return out
@@ -1977,10 +1995,12 @@ POSE_SIZE, SEG_WORK, MOBILENET_SIZE, CROP_SIZE = 368, 256, 256, 512
 POSE_TRAINED_SIZE = 320  # the `__meta__/input_size` the repository's trained Body-25 weights carry
 
 
-def person_clip(device, seed: int = 12) -> np.ndarray:
-    """(48, 1080, 1920, 3) frames in [-1, 1], made on the card from a seed: a
+def person_clip(device, seed: int = 12, n: int = CLIP_FRAMES, x_from: float = 0.35,
+                x_to: float = 0.65) -> np.ndarray:
+    """(n, 1080, 1920, 3) frames in [-1, 1], made on the card from a seed: a
     static textured background, one person-shaped blob (head, torso, arms,
-    legs, with its own texture) walking right, and camera noise."""
+    legs, with its own texture) walking right from x_from to x_to of the
+    width, and camera noise."""
     g = torch.Generator(device=device).manual_seed(seed)
     yy = torch.arange(CLIP_H, device=device, dtype=torch.float32)[:, None]
     xx = torch.arange(CLIP_W, device=device, dtype=torch.float32)[None, :]
@@ -1991,9 +2011,9 @@ def person_clip(device, seed: int = 12) -> np.ndarray:
                        -0.5 + 0.1 * torch.cos(xx / 11.0).expand(CLIP_H, CLIP_W),
                        torch.full((CLIP_H, CLIP_W), 0.6, device=device)], -1)
     s, cy = 0.78 * CLIP_H, 0.52 * CLIP_H
-    frames = torch.empty(CLIP_FRAMES, CLIP_H, CLIP_W, 3, device=device)
-    for i in range(CLIP_FRAMES):
-        cx = 0.35 * CLIP_W + 0.3 * CLIP_W * i / (CLIP_FRAMES - 1)
+    frames = torch.empty(n, CLIP_H, CLIP_W, 3, device=device)
+    for i in range(n):
+        cx = x_from * CLIP_W + (x_to - x_from) * CLIP_W * i / (n - 1)
         m = (xx - cx) ** 2 + (yy - (cy - 0.42 * s)) ** 2 < (0.08 * s) ** 2
         m = m | (((xx - cx).abs() < 0.13 * s) & (yy > cy - 0.33 * s) & (yy < cy + 0.05 * s))
         for side in (-1, 1):
@@ -2311,7 +2331,8 @@ def preprocess_phase(device) -> dict:
 
 
 SPIN_BATCH, SMPLIFY_FRAMES, DEFORM_FRAMES, MASK_SIZE = 32, 48, 4, 512
-DEFORM_STEPS = 200  # the JAX test's settings; the pipeline runs the 500-step defaults
+DEFORM_STEPS = 100  # the JAX test's 200, cut to hold the command's time
+PIPE_DEFORM_STEPS = 50  # the pipeline's offset fit (its default is 500: depth cut to hold the command's time)
 
 
 def natural_sequence(model, n: int, seed: int = 15):
@@ -2375,8 +2396,8 @@ def preprocess_3d_phase(device, crops: np.ndarray) -> dict:
     `digital_deform` run it: SPIN (seeded, at its published width) on the 48
     crops of `preprocess_2d` resized to 224², multi-hypothesis SMPLify from
     that theta against the keypoints of a seeded natural sequence with the
-    GMM prior, the silhouette offset fit at the JAX test's settings (200
-    steps; the pipeline phase runs it at its 500-step defaults) against K3's
+    GMM prior, the silhouette offset fit at the JAX test's settings but for
+    DEFORM_STEPS steps (200 there; the pipeline phase runs PIPE_DEFORM_STEPS) against K3's
     hard silhouettes of a wider body on 4 of the fitted frames, with its IoU
     through K3, and cloth links. Then each part on the card against the CPU,
     K3 against its plain version on this phase's batches, and the times.
@@ -2847,8 +2868,8 @@ def pipeline_phase(device, clip: dict) -> dict:
     """A raw clip to frames, through the three stages a user runs: PNG
     folders of 8 source and 16 reference frames of the 1080x1920 clip, then
     `run_imitator(opt, device="cuda")` (preprocess: detection, crop, SPIN,
-    mattes, find-front, inpainting, overlay for both inputs, the 500-step
-    offset fit for the source; `personalize` for 4 iterations at full width;
+    mattes, find-front, inpainting, overlay for both inputs, the offset fit
+    for the source, cut from its 500-step default to PIPE_DEFORM_STEPS; `personalize` for 4 iterations at full width;
     `imitate`), then `run_viewer` and `run_swapper` on the processed
     directories (their preprocess and personalize are skips). The seeded
     segmenter is the calibrated one, with a seeded GCA refiner, handed to the
@@ -2866,6 +2887,7 @@ def pipeline_phase(device, clip: dict) -> dict:
     from ipercore_tpu_torch.services.process_info import ProcessInfo
     from ipercore_tpu_torch.services.run_swapper import run_swapper
     from ipercore_tpu_torch.services.run_viewer import run_viewer
+    from ipercore_tpu_torch.tools import deformers as dfm
     from ipercore_tpu_torch.tools import mattors as mt
     from ipercore_tpu_torch.tools import pose3d as p3
     from ipercore_tpu_torch.tools.preprocessor import Preprocessor
@@ -2914,6 +2936,9 @@ def pipeline_phase(device, clip: dict) -> dict:
                                   device=device)
         with contextlib.ExitStack() as stack:
             stack.enter_context(mock.patch.object(prep_mod, "_preprocessor", lambda opt, device: pre))
+            fit = dfm.run_sil2smpl_offsets  # the offset fit cut to PIPE_DEFORM_STEPS (default 500)
+            stack.enter_context(mock.patch.object(dfm, "run_sil2smpl_offsets", lambda opt, info, **kw: fit(
+                opt, info, **{"n_steps": PIPE_DEFORM_STEPS, **kw})))
             for module, name in ((prep_mod, "human_estimate"), (prep_mod, "digital_deform"),
                                  (prep_mod, "post_update_opt"), (personalization, "personalize"),
                                  (ri, "imitate")):
@@ -3371,7 +3396,7 @@ def synth_data_phase(device) -> dict:
 # at their published defaults, K1 (and K3 in the generator's) on every batch
 # ---------------------------------------------------------------------------
 
-PT_WARMUP, PT_STEPS = 2, 10
+PT_WARMUP, PT_STEPS = 1, 3
 PT_CPU_ROWS = 2  # rows of a card batch that the CPU's step takes (1 for the generator's)
 # the JAX drivers' published defaults: batch per step, scene sizes
 PT_BATCH = {"vgg": 8, "faceloss": 12, "spin": 16, "openpose": 8, "person_seg": 8, "lwg_pretrain": 2}
@@ -3388,10 +3413,13 @@ def captured_rasters():
 
     from ipercore_tpu_torch.ops import rasterizer as rz
 
+    from ipercore_tpu_torch.models import imitator as imit
+
     # K3 is reached through `rasterizer.rasterize_batch` (the composition's
     # `render_fim_wim`), which calls `rasterizer_cuda.raster_fim` itself, so
-    # the wrapper and its launch count stay as they are
-    calls, k1, k3 = [], rc.raster_flows, rz.rasterize_batch
+    # the wrapper and its launch count stay as they are; K1 and K2 also
+    # through the names the imitator imported
+    calls, k1, k3, k2 = [], rc.raster_flows, rz.rasterize_batch, imit.grid_sample_nhwc
 
     def flows(fv, aux, size, *a, **kw):
         out = k1(fv, aux, size, *a, **kw)
@@ -3403,28 +3431,50 @@ def captured_rasters():
         calls.append(("raster_fim", fv, None, size, out))
         return out
 
-    saved = (sd.raster_flows, train_person_seg.raster_flows, rz.rasterize_batch)
-    sd.raster_flows = train_person_seg.raster_flows = flows
-    rz.rasterize_batch = fim
+    def sample(imgs, grids, *a, **kw):
+        out = k2(imgs, grids, *a, **kw)
+        calls.append(("grid_sample_nhwc", imgs, grids, None, (out if out is not None else kw["out"]).clone()))
+        return out
+
+    saved = (sd.raster_flows, train_person_seg.raster_flows, imit.raster_flows, rz.rasterize_batch,
+             imit.grid_sample_nhwc)
+    sd.raster_flows = train_person_seg.raster_flows = imit.raster_flows = flows
+    rz.rasterize_batch, imit.grid_sample_nhwc = fim, sample
     try:
         yield calls
     finally:
-        sd.raster_flows, train_person_seg.raster_flows, rz.rasterize_batch = saved
+        (sd.raster_flows, train_person_seg.raster_flows, imit.raster_flows, rz.rasterize_batch,
+         imit.grid_sample_nhwc) = saved
 
 
 def rasters_bit_equal(calls, what: str) -> dict:
-    """Each kept K1 / K3 call against its plain version on the same inputs,
-    bit for bit: {kernel: calls checked}."""
+    """Each kept K1 / K3 (and K2) call against its plain version on the same
+    inputs, bit for bit: {kernel: calls checked}."""
     from ipercore_tpu_torch.ops import rasterizer_cuda as rc
+    from ipercore_tpu_torch.ops.sampling_cuda import grid_sample_plain
 
-    seen = {}
+    seen, done = {}, []
+
+    def same(a, b):
+        return a is b or (a is not None and b is not None and a.shape == b.shape and torch.equal(a, b))
+
     for name, fv, aux, size, out in calls:
-        if name == "raster_flows_csr":
+        # a call on the inputs of one already held: its outputs must be that call's
+        twin = next((c for c in done if c[0] == name and c[3] == size and same(c[1], fv) and same(c[2], aux)), None)
+        if twin is not None:
+            a, b = (out, twin[4]) if name != "raster_fim" else ((out.fim, out.wim), (twin[4].fim, twin[4].wim))
+            check(all(torch.equal(x, y) for x, y in zip(a, b)) if isinstance(a, tuple) else torch.equal(a, b),
+                  f"{what}: {name} differs between two calls on the same inputs")
+        elif name == "grid_sample_nhwc":  # (imgs, grids) in the raster's slots
+            check(torch.equal(out, grid_sample_plain(fv, aux).to(out.dtype)), f"{what}: K2 differs from its plain version")
+        elif name == "raster_flows_csr":
             ref = rc.raster_flows_plain(fv, aux, size)
             raster_agreement(out[0], ref[0], out[1], ref[1], f"{what}: K1", bit_equal=True)
         else:
             ref = rc.raster_fim_plain(fv, size)
             raster_agreement(out.fim, ref.fim, out.wim, ref.wim, f"{what}: K3", bit_equal=True)
+        if twin is None:
+            done.append((name, fv, aux, size, out))
         seen[name] = seen.get(name, 0) + 1
     return seen
 
@@ -3474,7 +3524,7 @@ def card_vs_cpu(net, loss_of, batch, what: str) -> dict:
     return out
 
 
-def timed_trainer(what: str, iterate, make, rows: int) -> dict:
+def timed_trainer(what: str, iterate, make, rows: int, hand_written: bool = True) -> dict:
     """Warm-up, then PT_STEPS iterations (batch + step) by CUDA events; the
     batch alone (`make`); peak memory, host syncs and device time by kind of
     kernel (profiler) of one iteration."""
@@ -3491,7 +3541,7 @@ def timed_trainer(what: str, iterate, make, rows: int) -> dict:
     (loss, aux), peak = peak_gib_of(iterate)
     losses = {"loss": float(loss), **{k: float(v) for k, v in aux.items()}}
     check(all(np.isfinite(v) for v in losses.values()), f"{what}: losses not finite {losses}")
-    kinds = device_breakdown(iterate)
+    kinds = device_breakdown(iterate, hand_written)
     busy = {k: v for k, v in kinds.items() if k != "top"}
     return {"step_ms": step_ms, "batch_ms": cuda_ms(make, reps=PT_STEPS, warmup=0),
             "scenes_per_s": rows / (step_ms / 1e3), "peak_memory_gib": peak,
@@ -3681,6 +3731,423 @@ def lwg_pretrain_run(model, assets, cpu_model, d, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# drivers: the last drivers of `ipercore_tpu_torch/scripts/` (the SCHP,
+# inpaintor and ESRGAN trainers, the GMM prior fit, the perception check, the
+# pseudo-labellers, the dataset view and the accuracy-cost ladder)
+# ---------------------------------------------------------------------------
+
+DRV_FRAMES = 12  # clip frames the pseudo-labellers read (JAX: the 160 before its held-out band)
+DRV_THETA_ITERS = 50  # SMPLify steps of `pseudo_label_theta` (its default 150)
+# the trainers at the JAX drivers' published defaults: batch, scene or control size, pool
+DRV_SCHP, DRV_INPAINT, DRV_ESRGAN = (4, 256, 48), (8, 256, 64), (4, 192, 0)
+DRV_VERIFY_ARGS: list = []  # `verify_perception` at its defaults (8 frames at 256²)
+DRV_VISUAL_SIZE = 256  # `visual_processed_data`'s default --image_size
+
+
+def pool_rendered(what: str, render) -> tuple:
+    """(pool, {seconds, K1 launches, bit-equal calls}) of a trainer's pool,
+    every K1 call of it held bit-equal to the plain raster."""
+    launches = read_counts()
+    with captured_rasters() as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool = render()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = {k: v - launches[k] for k, v in read_counts().items()}
+    bit_equal = rasters_bit_equal(calls, what)
+    check(launches["raster_flows_csr"] >= 1 and bit_equal.get("raster_flows_csr") == launches["raster_flows_csr"],
+          f"{what}: pool K1 launches {launches}, checked {bit_equal}")
+    return pool, {"pool_s": seconds, "pool_shape": list(pool.shape), "pool_k1_launches": launches["raster_flows_csr"],
+                  "pool_bit_equal_calls": bit_equal}
+
+
+def driver_trainer(what: str, step, make, loss_of, net, rows: int, k1_per_step: int) -> dict:
+    """A trainer's step (`step(batch)` -> (loss, aux)): its launches on the
+    first iteration (each K1 held bit-equal), the timing of `timed_trainer`,
+    moved parameters and the step on the card against the CPU."""
+    t0 = time.perf_counter()
+    before = {k: v.detach().clone() for k, v in net.named_parameters()}
+    launches = read_counts()
+    with captured_rasters() as calls:
+        step(make())
+    launches = {k: v - launches[k] for k, v in read_counts().items()}
+    bit_equal = rasters_bit_equal(calls, what)
+    check(launches["raster_flows_csr"] == k1_per_step == bit_equal.get("raster_flows_csr", 0)
+          and launches["raster_fim"] == 0, f"{what}: launches {launches}, checked {bit_equal}")
+    out = {"launches_per_step": launches, "bit_equal_calls": bit_equal,
+           **timed_trainer(what, lambda: step(make()), make, rows, hand_written=k1_per_step > 0)}
+    out["param_max_move"] = moved(before, dict(net.named_parameters()))
+    check(out["param_max_move"] > 0, f"{what}: the parameters did not move")
+    t1 = time.perf_counter()
+    out["card_vs_cpu"] = card_vs_cpu(net, loss_of, rows_of(make(), PT_CPU_ROWS), what)
+    out["card_vs_cpu"]["seconds"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def reloads(save, load, name: str) -> dict:
+    """A trainer's file (`name`, as the driver names it) written, then loaded
+    strictly by its consumer."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        save(path)
+        t1 = time.perf_counter()
+        consumer = load(path)
+        return {"bytes": os.path.getsize(path), "consumer": type(consumer).__name__, "loads_strictly": True,
+                "save_s": t1 - t0, "load_s": time.perf_counter() - t1}
+
+
+def attention_routes(nets, batch) -> dict:
+    """Stage 2's loss and the refinement's gradient through the fused
+    contextual attention (one memory-efficient SDPA, backward included)
+    against the plain two-product route on the same card, and the
+    attention kernels the profiler sees in one fused step."""
+    from ipercore_tpu_torch.models.imitator import reference_precision
+    from ipercore_tpu_torch.ops.dispatch import force_plain
+    from ipercore_tpu_torch.scripts import _common as cm
+    from ipercore_tpu_torch.scripts import train_inpaintor as T
+
+    def loss_grad():
+        with reference_precision():
+            loss = T.loss_fn(nets, batch)[0]
+            g = cm.grads_of(nets.net, loss)
+        return float(loss), torch.cat([v.reshape(-1) for v in g.values()]).double()
+
+    (lf, gf), peak_fused = peak_gib_of(loss_grad)
+    with force_plain():
+        (lp, gp), peak_plain = peak_gib_of(loss_grad)
+    out = {"route": "fused: scaled_dot_product_attention, EFFICIENT_ATTENTION (forward and backward)",
+           "q_k_shape": [int(batch[0].shape[0]), 1, (batch[0].shape[1] // 4) ** 2, 9 * 4 * 48],
+           "loss_rel_diff": abs(lf - lp) / max(abs(lp), 1e-12),
+           "grad_l2_rel": float((gf - gp).norm() / gp.norm()),
+           "peak_gib_fused": peak_fused, "peak_gib_plain": peak_plain,
+           "fused_ms": cuda_ms(loss_grad, reps=3, warmup=1)}
+    with force_plain():
+        out["plain_ms"] = cuda_ms(loss_grad, reps=3, warmup=1)
+    attn = [(us, key) for us, key in kernel_times(loss_grad) if "fmha" in key.lower() or "attention" in key.lower()]
+    out["attention_kernels"] = [{"us": us, "kernel": key[:80]} for us, key in sorted(attn, reverse=True)[:4]]
+    check(out["loss_rel_diff"] <= 1e-5 and out["grad_l2_rel"] <= 1e-4, f"drivers inpaintor stage 2: routes {out}")
+    check(any("fmha" in a["kernel"].lower() for a in out["attention_kernels"]),
+          f"drivers inpaintor stage 2: no fused attention kernel in the step {out['attention_kernels']}")
+    return out
+
+
+def trainers_run(device) -> dict:
+    """The SCHP, inpaintor (both stages) and ESRGAN trainers at the JAX
+    drivers' published defaults, from CUDA generators and seeded weights on
+    the template body."""
+    import types
+
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.models.mesh import load_assets
+    from ipercore_tpu_torch.scripts import _common as cm
+    from ipercore_tpu_torch.scripts import train_esrgan as E
+    from ipercore_tpu_torch.scripts import train_inpaintor as T
+    from ipercore_tpu_torch.scripts import train_schp as P
+    from ipercore_tpu_torch.tools import synth_data as sd
+
+    t0 = time.perf_counter()
+    model = smpl_mod.template_model(device=device)
+    assets = load_assets(model, device=device)
+    draws = lambda seed: sd.Draws(torch.Generator(device=device).manual_seed(seed), device)
+    out = {"body_s": time.perf_counter() - t0}
+
+    # SCHP: a pool of 48 part maps at 256² (K1), batch 4
+    B, S, N = DRV_SCHP
+    pool, pool_info = pool_rendered("drivers schp", lambda: P.render_pool(draws(606), model, assets, N, B, S))
+    net, tx, d = P.build(device), cm.adam(3e-4, clip=1.0), draws(404)
+    state = [cm.init_state(tx, net)]
+
+    def schp_step(batch):
+        state[0], loss, aux = P.train_step(net, tx, state[0], batch)
+        return loss, aux
+
+    out["schp"] = {**pool_info, **driver_trainer("drivers schp", schp_step, lambda: P.make_batch(d, pool, B, S),
+                                                  P.loss_fn, net, B, k1_per_step=0)}
+    out["schp"]["saved"] = reloads(lambda p: P.save(p, net), lambda p: P.consumer(p, device), P.WEIGHTS_NAME)
+
+    # the inpaintor, stage 1: a pool of 64 dilated silhouettes at control 256² (K1), batch 8
+    B, S, N = DRV_INPAINT
+    pool, pool_info = pool_rendered("drivers inpaintor", lambda: T.render_pool(draws(101), model, assets, N, B, S))
+    d = draws(55)
+    make = lambda: T.make_batch(d, pool, B, S)
+    with tempfile.TemporaryDirectory() as tmp:
+        stage1 = os.path.join(tmp, T.WEIGHTS_NAME)
+        for stage in (1, 2):
+            nets = T.build(device, stage, stage1)
+            tx = cm.adam(2e-4, clip=1.0)
+            state = [cm.init_state(tx, nets.net)]
+
+            def inpaint_step(batch, nets=nets, tx=tx, state=state):
+                state[0], loss, aux = T.train_step(nets, tx, state[0], batch)
+                return loss, aux
+
+            coarse_cpu = copy.deepcopy(nets.coarse).cpu() if stage == 2 else None
+            by_device = {"cuda": nets.coarse, "cpu": coarse_cpu}
+            loss_of = lambda m, b, stage=stage, by_device=by_device: T.loss_fn(
+                types.SimpleNamespace(stage=stage, net=m, coarse=by_device[b[0].device.type]), b)
+            key = f"inpaintor_stage{stage}"
+            out[key] = {**pool_info, **driver_trainer(f"drivers {key}", inpaint_step, make, loss_of, nets.net, B,
+                                                         k1_per_step=0)}
+            if stage == 2:
+                t0 = time.perf_counter()
+                out[key]["attention"] = attention_routes(nets, make())
+                out[key]["attention"]["seconds"] = time.perf_counter() - t0
+                out[key]["saved"] = reloads(lambda p: T.save(p, nets), lambda p: T.consumer(p, device, 2, stage1),
+                                            T.REFINE_WEIGHTS_NAME)
+            else:
+                T.save(stage1, nets)  # stage 2 trains on these weights
+                out[key]["saved"] = reloads(lambda p: T.save(p, nets), lambda p: T.consumer(p, device),
+                                            T.WEIGHTS_NAME)
+
+    # ESRGAN: fresh scenes at 192² (K1 at 384²) each batch, batch 4
+    B, S, _ = DRV_ESRGAN
+    net, tx, d = E.build(device), cm.adam(2e-4, clip=1.0), draws(77)
+    state = [cm.init_state(tx, net)]
+
+    def esrgan_step(batch):
+        state[0], loss, aux = E.train_step(net, tx, state[0], batch)
+        return loss, aux
+
+    get = lambda dr: E.render_scenes(dr, model, assets, B, S)
+    out["esrgan"] = driver_trainer("drivers esrgan", esrgan_step, lambda: E.make_batch(d, get, B, S), E.loss_fn, net,
+                                   B, k1_per_step=1)
+    out["esrgan"]["saved"] = reloads(lambda p: E.save(p, net), lambda p: E.consumer(p, device), E.WEIGHTS_NAME)
+    return out
+
+
+def accuracy_run(device) -> dict:
+    """`accuracy_cost` at its defaults (512², 8 frames, full width, the six
+    configurations): the golden frames under cuDNN's deterministic
+    algorithms, each shortcut's SSIM / PSNR / mean |delta| against them, and
+    every K1 / K2 / K3 call bit-equal to its plain version."""
+    from ipercore_tpu_torch.scripts.evaluate import accuracy_cost as A
+
+    zero_counts()
+    with captured_rasters() as calls:
+        t0 = time.perf_counter()
+        comp, gens, cache = A.build(SIZE, False, device)
+        tgt = torch.as_tensor(A.golden_sequence(SIZE, NS, CHUNK)[2], device=device)
+        with deterministic_convolutions():
+            golden = A.run_configs(comp, gens, cache, tgt)[A.CONFIGS[0][0]]
+        frames = A.run_configs(comp, gens, cache, tgt)
+        frames[A.CONFIGS[0][0]] = golden
+        rows = A.score(frames, device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = read_counts()
+    bit_equal = rasters_bit_equal(calls, "drivers accuracy_cost")
+    for k in ("raster_flows_csr", "grid_sample_nhwc", "raster_fim"):
+        check(launches[k] >= 1 and bit_equal.get(k) == launches[k], f"drivers accuracy_cost: {k} {launches} {bit_equal}")
+    check(np.isfinite(golden).all() and golden.shape == (CHUNK, SIZE, SIZE, 3), "drivers accuracy_cost: golden frames")
+    for r in rows:
+        check(np.isfinite([r["ssim_vs_golden"], r["mean_abs_delta"]]).all() and r["ssim_vs_golden"] > 0.9,
+              f"drivers accuracy_cost: {r}")
+    return {"seconds": seconds, "rows": rows, "launches": launches, "bit_equal_calls": bit_equal}
+
+
+def perception_check_run(device) -> dict:
+    """`verify_perception` at its defaults (8 frames at 256² on the template
+    body) with the seeded networks (no weight file in the checkout): each
+    `*_trained` flag, K1 on the render and K3 on the re-render bit-equal."""
+    from ipercore_tpu_torch.scripts import verify_perception as V
+
+    zero_counts()
+    with captured_rasters() as calls:
+        t0 = time.perf_counter()
+        result = V.main(DRV_VERIFY_ARGS + ["--device", str(device)])
+        seconds = time.perf_counter() - t0
+    launches = read_counts()
+    bit_equal = rasters_bit_equal(calls, "drivers verify_perception")
+    for k in ("raster_flows_csr", "raster_fim"):
+        check(launches[k] >= 1 and bit_equal.get(k) == launches[k], f"drivers verify_perception: {k} {launches}")
+    check(np.isfinite([result["j2d_px_256_spin"], result["bg_l1"]]).all(), f"drivers verify_perception: {result}")
+    return {"seconds": seconds, "result": result, "launches": launches, "bit_equal_calls": bit_equal}
+
+
+def gmm_run(device) -> dict:
+    """`fit_gmm_prior` at its defaults (16384 poses, 8 components) into a
+    temporary directory; the fit read back by `load_gmm_prior` on the card
+    and on the CPU, and the mean NLL of the driver's hold-out poses on each."""
+    from ipercore_tpu_torch.scripts import fit_gmm_prior as G
+    from ipercore_tpu_torch.tools.pose3d import GMM_DEFAULT_WEIGHTS, gmm_prior_nll, load_gmm_prior
+    from ipercore_tpu_torch.tools.synth_data import Draws, natural_pose
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, os.path.basename(GMM_DEFAULT_WEIGHTS))
+        t0 = time.perf_counter()
+        result = G.main(["--out", path, "--device", str(device)])
+        seconds = time.perf_counter() - t0
+        prior, cpu_prior = load_gmm_prior(path, device=device), load_gmm_prior(path, device="cpu")
+    hold = natural_pose(Draws(torch.Generator(device=device).manual_seed(99), device), 256)[:, 3:]
+    nll = {"card": float(gmm_prior_nll(prior, hold).mean()), "cpu": float(gmm_prior_nll(cpu_prior, hold.cpu()).mean())}
+    check(prior.means.shape == (8, 69) and bool(torch.isfinite(prior.precisions).all())
+          and abs(nll["card"] - nll["cpu"]) <= 1e-4 * abs(nll["cpu"])
+          and abs(nll["card"] - result["nll_natural_holdout"]) <= 0.01, f"drivers fit_gmm_prior: {result} {nll}")
+    return {"seconds": seconds, **{k: v for k, v in result.items() if k != "out"}, "holdout_nll": nll}
+
+
+def pseudo_pool(device, n: int = 8, size: int = 320) -> dict:
+    """A pose pseudo-label pool in `pseudo_label_pose`'s layout from drawn
+    scenes (K1) with their exact Body-25 keypoints, for `pseudo_label_theta`."""
+    from ipercore_tpu_torch.models import smpl as smpl_mod
+    from ipercore_tpu_torch.models.mesh import load_assets
+    from ipercore_tpu_torch.tools import synth_data as sd
+
+    model = smpl_mod.template_model(device=device)
+    sb = sd.compose_scene(sd.Draws(torch.Generator(device=device).manual_seed(31), device), model,
+                          load_assets(model, device=device), n, size, yaw=False, natural_frac=1.0)
+    b25, valid = sd.body25_from_cocoplus(sb.j2d)
+    vis = (b25.abs() < 0.98).all(-1).cpu().numpy() & (valid[None] > 0)
+    return {"crops": sb.img.cpu().numpy().astype(np.float16), "kps_ndc": b25.cpu().numpy().astype(np.float32),
+            "valid": vis.astype(np.float32), "frames": np.arange(n)}
+
+
+def pseudo_labels_run(device, clip: dict) -> dict:
+    """The three pseudo-labellers on DRV_FRAMES 1080x1920 frames of the
+    preprocessing clip's person walking across the whole width (so that the
+    clip's median is its background), written as PNGs into a temporary
+    `FRAME_DIR`: the calibrated segmenter, the seeded Body-25 (at its 320²
+    scale) and the seeded SPIN with its camera head zeroed, as weight files in
+    the same directory; theta on a drawn pool with exact keypoints."""
+    from unittest import mock
+
+    from ipercore_tpu_torch.scripts import eval_real_photos as real
+    from ipercore_tpu_torch.scripts import pseudo_label_pose, pseudo_label_seg, pseudo_label_theta
+    from ipercore_tpu_torch.tools import mattors as mt
+    from ipercore_tpu_torch.tools import pose2d as p2
+    from ipercore_tpu_torch.tools import pose3d as p3
+    from ipercore_tpu_torch.utils import video as vid
+    from ipercore_tpu_torch.utils.checkpoint import seeded_flat_params
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        frame_dir = os.path.join(tmp, "real_frames")
+        os.makedirs(frame_dir)
+        t0 = time.perf_counter()
+        frames = person_clip(device, n=DRV_FRAMES, x_from=0.1, x_to=0.9)
+        for i, f in enumerate(frames):
+            vid.save_image(os.path.join(frame_dir, f"akun_{i:04d}.png"), f)
+        out["write_pngs_s"] = time.perf_counter() - t0
+        # the three weight files, each where its runner looks by default, under its own file name
+        defaults = {"person_seg": (mt, "DEFAULT_WEIGHTS"), "openpose": (p2, "OPENPOSE_DEFAULT_WEIGHTS"),
+                    "spin": (p3, "SPIN_DEFAULT_WEIGHTS")}
+        weights = {"person_seg": {**{f"seg/{k}": v for k, v in clip["seg_flat"].items()},
+                                  **{f"mat/{k}": v for k, v in seeded_flat_params(mt.MattingRefiner(),
+                                                                                  mt.MATTING_SEED).items()}},
+                   "openpose": {**seeded_flat_params(p2.OpenPoseBody25(), p2.OPENPOSE_SEED),
+                                "__meta__/input_size": np.asarray(POSE_TRAINED_SIZE)},
+                   "spin": framed_spin_params(seeded_flat_params(p3.SPINNet(), p3.SPIN_SEED))}
+        patches = [(real, "FRAME_DIR", frame_dir), (pseudo_label_pose, "VAL_BAND_START", DRV_FRAMES),
+                   (pseudo_label_seg, "VAL_BAND_START", DRV_FRAMES), (mt, "GCA_WEIGHTS", os.path.join(tmp, "no_gca"))]
+        for name, (module, attr) in defaults.items():  # uncompressed: the loaders read either
+            path = os.path.join(tmp, os.path.basename(getattr(module, attr)))
+            with open(path, "wb") as f:
+                np.savez(f, **weights[name])
+            patches.append((module, attr, path))
+        # the files the three drivers write, named as they name them
+        names = {"pose": os.path.basename(pseudo_label_theta.IN_NPZ),
+                 "seg": os.path.basename(pseudo_label_seg.OUT), "theta": os.path.basename(pseudo_label_theta.OUT_NPZ)}
+        labels = os.path.join(tmp, "labels")
+        pool_path = os.path.join(tmp, "pool", names["pose"])
+        os.makedirs(os.path.dirname(pool_path))
+        with open(pool_path, "wb") as f:
+            np.savez_compressed(f, **pseudo_pool(device))
+        with contextlib.ExitStack() as stack:
+            for module, attr, value in patches:
+                stack.enter_context(mock.patch.object(module, attr, value))
+            for name, run, argv in (("pose", pseudo_label_pose.main, []), ("seg", pseudo_label_seg.main, []),
+                                    ("theta", pseudo_label_theta.main, ["--in_npz", pool_path,
+                                                                        "--iters", str(DRV_THETA_ITERS)])):
+                zero_counts()
+                t0 = time.perf_counter()
+                stats = run(argv + ["--out", os.path.join(labels, names[name]), "--device", str(device)])
+                torch.cuda.synchronize()
+                out[name] = {"seconds": time.perf_counter() - t0, "stats": stats, "launches": read_counts()}
+        wrote = {k: os.path.exists(os.path.join(labels, n)) for k, n in names.items()}
+        out["wrote"] = wrote
+        check(out["pose"]["stats"]["n_frames"] == DRV_FRAMES and out["seg"]["stats"]["n_frames"] == DRV_FRAMES,
+              f"drivers pseudo-labels: {out}")
+        check(out["seg"]["stats"]["kept"] > 0 and wrote["seg"], f"drivers pseudo_label_seg kept nothing: {out['seg']}")
+        frac = out["seg"]["stats"]["mean_mask_frac"]
+        check(0.02 < frac < 0.5, f"drivers pseudo_label_seg masks cover {frac}")
+        out["seg"]["clip_person_frac"] = float(person_masks(frames).mean())
+        check(out["theta"]["stats"]["n"] == 8 and np.isfinite(out["theta"]["stats"]["err_mean"]),
+              f"drivers pseudo_label_theta: {out['theta']}")
+    return out
+
+
+def visual_run(device) -> dict:
+    """`visual_processed_data` on a processed directory of 6 frames at 256²
+    (its default size): the grids written, K3 bit-equal on its batches."""
+    from ipercore_tpu_torch.scripts import visual_processed_data as VP
+    from ipercore_tpu_torch.utils import video as vid
+
+    with tempfile.TemporaryDirectory() as root:
+        write_processed(root, "clip", 6, seed=3, masks=True)
+        grids = os.path.join(root, "grids")
+        zero_counts()
+        with captured_rasters() as calls:
+            t0 = time.perf_counter()
+            rc = VP.main(["--dataset_dir", root, "--out_dir", grids, "--num_batches", "2",
+                          "--image_size", str(DRV_VISUAL_SIZE), "--device", str(device)])
+            seconds = time.perf_counter() - t0
+        launches = read_counts()
+        bit_equal = rasters_bit_equal(calls, "drivers visual_processed_data")
+        names = sorted(os.listdir(grids))
+        img = vid.load_image(os.path.join(grids, names[0]))
+    check(rc == 0 and names == ["batch_000.png", "batch_001.png"] and img.shape == (DRV_VISUAL_SIZE, 5 * DRV_VISUAL_SIZE, 3)
+          and img.std() > 0, f"drivers visual_processed_data: {rc} {names} {img.shape}")
+    check(launches["raster_fim"] >= 4 and bit_equal.get("raster_fim") == launches["raster_fim"],
+          f"drivers visual_processed_data: K3 {launches} {bit_equal}")
+    return {"seconds": seconds, "grids": names, "launches": launches, "bit_equal_calls": bit_equal}
+
+
+def drivers_phase(device, clip: dict) -> dict:
+    """The drivers of the last slice on the card, each with the launch counts
+    set to 0 before it (`launches` sums the phase)."""
+    from ipercore_tpu_torch.scripts.evaluate import self_imitation
+
+    t0 = time.perf_counter()
+    zero_counts()
+    total = {k: 0 for k in counters()}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    out = {}
+    zero_counts()
+    t1 = time.perf_counter()
+    out["trainers"] = trainers_run(device)
+    out["trainers"]["seconds"] = time.perf_counter() - t1
+    add(read_counts())
+    out["accuracy_cost"] = accuracy_run(device)
+    add(out["accuracy_cost"]["launches"])
+    out["verify_perception"] = perception_check_run(device)
+    add(out["verify_perception"]["launches"])
+    zero_counts()
+    out["fit_gmm_prior"] = gmm_run(device)
+    add(read_counts())
+    t1 = time.perf_counter()
+    out["pseudo_labels"] = pseudo_labels_run(device, clip)
+    out["pseudo_labels"]["seconds"] = time.perf_counter() - t1
+    for k in ("pose", "seg", "theta"):
+        add(out["pseudo_labels"][k]["launches"])
+    out["visual_processed_data"] = visual_run(device)
+    add(out["visual_processed_data"]["launches"])
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = self_imitation.main(["--out_dir", tmp, "--device", str(device)])
+    out["self_imitation"] = {"rc": rc, "said": said.getvalue().strip()}
+    check(rc == 1 and "no sample clip" in said.getvalue(), f"drivers self_imitation: {out['self_imitation']}")
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["kernels"], default=None,
@@ -3750,6 +4217,8 @@ def main() -> int:
     emit("synth_data", **synth)
     trainers = perception_train_phase(device)
     emit("perception_train", **trainers)
+    drivers = drivers_phase(device, clip)
+    emit("drivers", **drivers)
 
     # launches: K1-K3 on the main path's run, K4 on the table route's
     launches = dict(result["launches"], raster_flows_table=table["launches"]["raster_flows_table"])
@@ -3775,6 +4244,8 @@ def main() -> int:
         kernels[name]["launches_streaming"] = streaming["launches"][name]
         kernels[name]["launches_synth_data"] = synth["launches"][name]
         kernels[name]["launches_perception_train"] = trainers["launches"][name]
+        kernels[name]["launches_drivers"] = drivers["launches"][name]
+    emit("timing", phase_s=dict(PHASE_S), command_s=time.perf_counter() - T_START)
     line = {"kernels": [
         {"name": name, "replaces": REPLACES[name], "launches": launches[name],
          "ms": v["wrapper_ms"], **v}  # `ms`: the whole call, as a user of the wrapper pays it

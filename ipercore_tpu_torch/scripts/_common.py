@@ -35,9 +35,10 @@ REPO_DIR = os.path.dirname(WEIGHTS_DIR)
 
 # starting weights of each trained network (the networks' own seeds where the
 # port has one: `pose2d.OPENPOSE_SEED`, `mattors.PERSON_SEG_SEED` / `MATTING_SEED`,
-# `pose3d.SPIN_SEED`, `criterions.init_vgg_params` / `init_face_params`)
+# `pose3d.SPIN_SEED`, `criterions.init_vgg_params` / `init_face_params`,
+# `parsers.SCHP_SEED`, `inpaintors.INPAINT_SEED` / `REFINE_SEED` / `SR_SEED`)
 SEEDS = {"G": 0, "D": 1, "vgg": 2, "face": 3, "openpose": 4, "person_seg": 5, "mobilenet": 6,
-         "spin": 7, "matting": 8}
+         "spin": 7, "matting": 8, "schp": 9, "inpaintor": 10, "inpaintor_refine": 11, "esrgan": 12}
 
 
 def resolve_device(name: str | torch.device) -> torch.device:
@@ -80,9 +81,11 @@ def init_state(tx: Adam, net: torch.nn.Module) -> AdamState:
 
 
 def grads_of(net: torch.nn.Module, loss: torch.Tensor) -> dict[str, torch.Tensor]:
-    """d loss / d every parameter of `net`."""
+    """d loss / d every parameter of `net`; zeros for a parameter the loss
+    does not reach (a head the forward leaves out), as `jax.grad` gives."""
     params = params_of(net)
-    return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    return dict(zip(params, torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                                materialize_grads=True)))
 
 
 def update(net: torch.nn.Module, tx: Adam, opt_state: AdamState, loss: torch.Tensor) -> AdamState:
@@ -136,6 +139,20 @@ def softmax_cross_entropy_with_integer_labels(logits: torch.Tensor, labels: torc
     shifted = logits - logits.amax(-1, keepdim=True).detach()
     label_logits = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
     return torch.log(torch.exp(shifted).sum(-1)) - label_logits
+
+
+def box_down4(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/4, W/4, C): the mean of each 4x4 block
+    (`jax.lax.reduce_window(x, 0, add, (1, 4, 4, 1), (1, 4, 4, 1), "VALID") / 16`)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 4).permute(0, 2, 3, 1)
+
+
+def pool_chunks(render, draws, pool: int, batch: int) -> torch.Tensor:
+    """A pre-rendered pool: `render(draws)` of `batch` items, called until
+    max(pool, batch) items exist, concatenated and cut to that count (the
+    JAX drivers' pools; one chunk per split key there)."""
+    n = max(pool, batch)
+    return torch.cat([render(draws) for _ in range(-(-n // batch))])[:n]
 
 
 def roll_each(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:

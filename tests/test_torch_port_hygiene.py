@@ -22,8 +22,21 @@ from ipercore_tpu_torch.utils import cuda_build
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(ROOT, "ipercore_tpu_torch")
-DRIVERS = ("train_lwg_pretrain", "train_vgg", "train_faceloss", "train_spin", "train_openpose",
-           "train_person_seg")
+# each driver of `ipercore_tpu_torch/scripts/` with the arguments of a short run
+DRIVER_ARGS = {
+    "train_lwg_pretrain": ["--smoke"], "train_vgg": ["--smoke"], "train_faceloss": ["--smoke"],
+    "train_spin": ["--smoke"], "train_openpose": ["--smoke"], "train_person_seg": ["--smoke"],
+    "train_schp": ["--smoke"], "train_inpaintor": ["--smoke"], "train_esrgan": ["--smoke"],
+    "fit_gmm_prior": ["--n", "64", "--out", os.devnull], "pseudo_label_pose": ["--report"],
+    "pseudo_label_seg": ["--report"], "pseudo_label_theta": ["--report"], "eval_real_photos": [],
+    "verify_perception": ["--frames", "2"], "prepare_dataset": ["--raw_dir", ".", "--output_dir", "."],
+    "visual_processed_data": ["--dataset_dir", "."], "evaluate.eval_imitator": ["--pred_dir", ".", "--gt_dir", "."],
+    "evaluate.accuracy_cost": ["--smoke"], "evaluate.self_imitation": [],
+}
+DRIVERS = tuple(DRIVER_ARGS)
+# the root `scripts/` drivers without a twin: the JAX benchmark drivers, which
+# the port's benchmark replaces, and the port's own probes (`torch_*`)
+NO_TWIN = ("train_bench", "stage_bench", "temporal_bench", "measure_reference_baseline", "qualify_train_memory")
 WEIGHTS = ["esrgan", "faceloss", "inpaintor", "inpaintor_refine", "lwg_pretrained_G",
            "matting_gca", "mobilenet_openpose", "openpose", "person_seg", "schp", "spin",
            "vgg_perceptual"]
@@ -67,6 +80,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "ipercore_tpu_torch.tools.inpaintors", "ipercore_tpu_torch.services.preprocess",
               "ipercore_tpu_torch.parallel.inference", "ipercore_tpu_torch.parallel.streaming",
               "ipercore_tpu_torch.tools.synth_data", *(f"ipercore_tpu_torch.scripts.{d}" for d in DRIVERS),
+              "ipercore_tpu_torch.scripts.evaluate",
               "ipercore_tpu_torch.scripts._common", "ipercore_tpu_torch.scripts.eval_real_photos"):
         assert m in names
     code = (
@@ -209,7 +223,7 @@ def test_entry_points_default_to_cuda(module, name):
 
 @pytest.mark.parametrize("driver", DRIVERS)
 def test_training_drivers_default_to_the_card_and_refuse_without_one(monkeypatch, driver):
-    """`python -m ipercore_tpu_torch.scripts.<driver>` trains on `cuda` unless
+    """`python -m ipercore_tpu_torch.scripts.<driver>` runs on `cuda` unless
     `--device cpu` is given; without a card it raises before any work, it
     does not fall back to the CPU."""
     import importlib
@@ -218,7 +232,31 @@ def test_training_drivers_default_to_the_card_and_refuse_without_one(monkeypatch
     assert "--device" in inspect.getsource(mod.main) and 'default="cuda"' in inspect.getsource(mod.main)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        mod.main(["--smoke"])
+        mod.main(DRIVER_ARGS[driver])
+
+
+def test_every_root_script_has_a_twin_or_is_listed():
+    """Each `.py` under the root `scripts/` (subfolders too) has a twin of the
+    same relative path under `ipercore_tpu_torch/scripts/`, or is one of the
+    JAX benchmark drivers the port's benchmark replaces, or a probe of the
+    port's own (`torch_*`)."""
+    root = os.path.join(ROOT, "scripts")
+    missing = []
+    for d, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py") or f == "__init__.py":
+                continue
+            rel = os.path.relpath(os.path.join(d, f), root)
+            name = rel[:-3].replace(os.sep, ".")
+            if name in NO_TWIN or f.startswith("torch_"):
+                continue
+            if not os.path.exists(os.path.join(PKG, "scripts", rel)):
+                missing.append(rel)
+    assert not missing, missing
+    # every twin is in the no-JAX import test and the card test above
+    prefix = "ipercore_tpu_torch.scripts."
+    twins = {n[len(prefix):] for n in _module_names() if n.startswith(prefix)}
+    assert {t for t in twins if not t.rsplit(".", 1)[-1].startswith("_") and t != "evaluate"} == set(DRIVERS)
 
 
 def test_sharded_synthesize_defaults_to_every_cuda_device(monkeypatch):

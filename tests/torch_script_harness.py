@@ -50,14 +50,17 @@ def _host(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def run_jax_script(name: str, argv: list[str], until: str, before: bool = False) -> dict:
+def run_jax_script(name: str, argv: list[str], until: str, before: bool = False, path: str | None = None) -> dict:
     """Returns {"log": [...], "loss_fn": (fn, value_and_grad kwargs),
     "vg": (args, result) as numpy trees, "updates": (params, updates) as
-    numpy trees, "stopped": (args, fn) of `until` when `before`}."""
+    numpy trees, "stopped": (args, fn) of `until` when `before`}. `path`:
+    the driver's file when it is not `scripts/<name>.py` (a copy whose
+    repository root is a temporary directory)."""
     from ipercore_tpu.models import mesh as jmesh
     from ipercore_tpu.models import smpl as jsmpl
 
-    spec = importlib.util.spec_from_file_location(f"jax_driver_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
+    spec = importlib.util.spec_from_file_location(f"jax_driver_{name}",
+                                                  path or os.path.join(ROOT, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     out = {"log": [], "loss_fn": None, "vg": None, "updates": None, "stopped": None, "until": None}
@@ -150,6 +153,29 @@ def eager_with_draws(fn, *args):
             m.setattr(jax.random, kind, wrap)
         res = fn(*args)
     return res, draws
+
+
+def draws_of_calls(log: list, name: str, end: str) -> list:
+    """The draws from the first call of `name` (a pool rendered chunk by
+    chunk) up to the first call of `end` (jitted functions that `name` calls
+    while it is traced mark the log too, and are passed over)."""
+    i0 = next(i for i, e in enumerate(log) if e[0] == "call" and e[1] == name)
+    draws = []
+    for e in log[i0:]:
+        if e[0] == "call" and e[1] == end:
+            break
+        if e[0] == "draw":
+            draws.append(e[1:])
+    return draws
+
+
+def load_jax_script(name: str):
+    """The JAX driver `scripts/<name>.py` as a module (its `main()` not run)."""
+    spec = importlib.util.spec_from_file_location(f"jax_tool_{name.replace('/', '_')}",
+                                                  os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def draws_between(log: list, start: str, end: str | None = None, nth: int = 0) -> list:
@@ -246,3 +272,74 @@ def grads_against_jax(net, loss_of, jgrads_torch: dict) -> dict:
         out.update(port_vs_f64=rel_l2(g_t, g_64), jax_vs_f64=rel_l2(g_j, g_64))
         assert out["port_vs_f64"] <= 1.5 * out["jax_vs_f64"] and out["port_vs_jax"] <= 1e-2, out
     return out
+
+
+def drawn_clip(n: int, h: int, w: int, seed: int, scene: int = 256) -> np.ndarray:
+    """(n, h, w, 3) frames in [-1, 1] of a static camera: one scene of the
+    segmenter's training distribution (`compose_scene` on the template body
+    at scene², resized to h²) whose person walks from the left edge to the
+    right one over the scene's background plate (resized to h x w)."""
+    from ipercore_tpu_torch.data.datasets import resize_linear
+    from ipercore_tpu_torch.models import smpl as tsmpl
+    from ipercore_tpu_torch.models.mesh import load_assets
+    from ipercore_tpu_torch.tools import synth_data as sd
+
+    model = tsmpl.template_model(device="cpu")
+    sb = sd.compose_scene(sd.Draws(torch.Generator().manual_seed(seed), "cpu"), model,
+                          load_assets(model, device="cpu"), 1, scene, studio_frac=0.35, garment_frac=0.5,
+                          natural_frac=0.65)
+    img, alpha = resize_linear(sb.img, (1, h, h, 3))[0], resize_linear(sb.alpha, (1, h, h, 1))[0]
+    bg = resize_linear(sb.bg, (1, h, w, 3))[0]
+    frames = []
+    for i in range(n):
+        x0 = int(round(-0.3 * h + i * (w - 0.4 * h) / max(n - 1, 1)))  # the square's left edge
+        lo, hi = max(x0, 0), min(x0 + h, w)
+        a = torch.zeros(h, w, 1)
+        p = torch.zeros(h, w, 3)
+        a[:, lo:hi], p[:, lo:hi] = alpha[:, lo - x0:hi - x0], img[:, lo - x0:hi - x0]
+        frames.append(p * a + bg * (1 - a))
+    return torch.stack(frames).clamp(-1, 1).numpy()
+
+
+def write_frames(frame_dir: str, frames: np.ndarray, ids) -> None:
+    """Each frame as `akun_<id>.png` (8-bit), where the clip's extracted
+    frames are read from."""
+    from ipercore_tpu_torch.utils import video as vid
+
+    os.makedirs(frame_dir, exist_ok=True)
+    for f, i in zip(frames, ids):
+        vid.save_image(os.path.join(frame_dir, f"akun_{i:04d}.png"), f)
+
+
+# the default weight-file paths of both packages' runners, by weight name
+WEIGHT_PATHS = {
+    "person_seg": ("tools.mattors", "DEFAULT_WEIGHTS"), "matting_gca": ("tools.mattors", "GCA_WEIGHTS"),
+    "openpose": ("tools.pose2d", "OPENPOSE_DEFAULT_WEIGHTS"), "spin": ("tools.pose3d", "SPIN_DEFAULT_WEIGHTS"),
+    "mobilenet_openpose": ("tools.pose2d_mobilenet", "MOBILENET_DEFAULT_WEIGHTS"),
+    "inpaintor": ("tools.inpaintors", "INPAINT_DEFAULT_WEIGHTS"), "esrgan": ("tools.inpaintors", "SR_DEFAULT_WEIGHTS"),
+    "inpaintor_refine": ("tools.inpaintors", "REFINE_DEFAULT_WEIGHTS"),
+    "schp": ("tools.parsers", "SCHP_DEFAULT_WEIGHTS"),
+    "vgg_perceptual": ("models.networks.criterions", "DEFAULT_VGG_WEIGHTS"),
+}
+
+
+def point_weights(m, paths: dict) -> None:
+    """Both packages' default weight paths of each name in `paths` set to
+    its path (None: a path that does not exist), through the MonkeyPatch `m`."""
+    import importlib
+
+    for name, path in paths.items():
+        mod, attr = WEIGHT_PATHS[name]
+        for pkg in ("ipercore_tpu", "ipercore_tpu_torch"):
+            m.setattr(importlib.import_module(f"{pkg}.{mod}"), attr, path or os.path.join(ROOT, "no", f"{name}.npz"))
+
+
+def jax_scripts_module(name: str):
+    """The JAX drivers' own import of `scripts/<name>.py` by its bare name
+    (`from eval_real_photos import ...`), with `scripts/` on the path."""
+    import importlib
+
+    scripts = os.path.join(ROOT, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
