@@ -691,30 +691,26 @@ def tiles_touched(face_verts, size: int) -> int:
 
 
 def counters() -> dict:
-    """Launch counters: the four kernels, the device binning that K1 and K3
-    launch before their walk, and K4's device binning."""
-    from ipercore_tpu_torch.ops.rasterizer_cuda import (
-        prepare_raster,
-        prepare_table,
-        raster_fim,
-        raster_flows,
-        raster_flows_table,
-    )
-    from ipercore_tpu_torch.ops.sampling_cuda import grid_sample_nhwc
-
-    return {"raster_flows_csr": raster_flows, "grid_sample_nhwc": grid_sample_nhwc,
-            "raster_fim": raster_fim, "raster_flows_table": raster_flows_table,
-            "raster_binning": prepare_raster, "table_binning": prepare_table}
+    """Launch counters, by their names in the port's counter registry: the
+    four kernels, the device binning that K1 and K3 launch before their walk,
+    and K4's device binning."""
+    return {"raster_flows_csr": "k1.launches", "grid_sample_nhwc": "k2.launches",
+            "raster_fim": "k3.launches", "raster_flows_table": "k4.launches",
+            "raster_binning": "raster_binning.launches", "table_binning": "table_binning.launches"}
 
 
 def zero_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    from ipercore_tpu_torch.utils.logging import reset_counts
+
+    reset_counts(counters().values())
 
 
 def read_counts() -> dict:
+    from ipercore_tpu_torch.utils.logging import counts
+
     torch.cuda.synchronize()
-    return {k: fn.launches for k, fn in counters().items()}
+    now = counts()
+    return {k: now.get(name, 0) for k, name in counters().items()}
 
 
 def close_fraction(a, b, tol: float = 1e-3) -> float:

@@ -21,6 +21,11 @@ Precision. The f32 path is the reference path: it runs with
 `torch.backends.cuda.matmul.allow_tf32 = False` (see `reference_precision`),
 because TF32 keeps about three decimal digits. `compute_dtype=torch.bfloat16`
 is an explicit knob, off by default, for which no parity is claimed.
+
+Spans (`utils.logging.span`): `setup.source` with `setup.body` (LBS),
+`setup.render` (K3, morph), `setup.process`, `setup.bgnet` and `setup.srcnet`
+inside; `prepare.targets`; and in `synthesize_frames` `synth.geometry`
+(`make_frame_inputs`) then `synth.generator` (`generate_frames`).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from ipercore_tpu_torch.ops import rotations as rot
 from ipercore_tpu_torch.ops.rasterizer_cuda import TABLE_TILE_W, raster_flows, raster_flows_table
 from ipercore_tpu_torch.ops.sampling_cuda import grid_sample_nhwc
 from ipercore_tpu_torch.utils import camera as cam_utils
+from ipercore_tpu_torch.utils.logging import span
 
 
 def use_csr_raster() -> bool:
@@ -98,31 +104,37 @@ def setup_source(
         bg_img: optional background (1, S, S, 3); otherwise BGNet inpaints it;
         part_mask: optional (F,) bool to restrict flows.
     """
-    bs, ns = src_img.shape[0], src_img.shape[1]
-    S = comp.image_size
+    with span("setup.source"):
+        bs, ns = src_img.shape[0], src_img.shape[1]
+        S = comp.image_size
 
-    details = smpl_mod.get_details(comp.model, src_smpl.reshape(bs * ns, -1), offsets, links_ids)
-    m_flat = masks.reshape(bs * ns, S, S, 1) if masks is not None else None
-    src_info = fc.render_smpl_info(
-        comp, details["verts"], details["cam"], masks=m_flat, use_morph=True, get_uv_info=True)
-    if m_flat is not None:
-        src_info["masks"] = m_flat
+        with span("setup.body"):
+            details = smpl_mod.get_details(comp.model, src_smpl.reshape(bs * ns, -1), offsets, links_ids)
+        m_flat = masks.reshape(bs * ns, S, S, 1) if masks is not None else None
+        with span("setup.render"):
+            src_info = fc.render_smpl_info(
+                comp, details["verts"], details["cam"], masks=m_flat, use_morph=True, get_uv_info=True)
+        if m_flat is not None:
+            src_info["masks"] = m_flat
 
-    uv_img, input_G_bg, input_G_src = fc.process_source(comp, src_img, src_info)
+        with span("setup.process"):
+            uv_img, input_G_bg, input_G_src = fc.process_source(comp, src_img, src_info)
 
-    with reference_precision():
-        bg = generator.forward_bg(input_G_bg)[:, 0] if bg_img is None else bg_img
-        enc_outs, res_outs = generator.forward_src(input_G_src, True)
+        with reference_precision():
+            with span("setup.bgnet"):
+                bg = generator.forward_bg(input_G_bg)[:, 0] if bg_img is None else bg_img
+            with span("setup.srcnet"):
+                enc_outs, res_outs = generator.forward_src(input_G_src, True)
 
-    if part_mask is not None:
-        src_info = fc.add_selected_f2pts(src_info, part_mask)
-        f2pts = src_info["selected_f2pts"]
-    else:
-        f2pts = src_info["only_vis_f2pts"] if comp.only_vis else src_info["f2pts"]
+        if part_mask is not None:
+            src_info = fc.add_selected_f2pts(src_info, part_mask)
+            f2pts = src_info["selected_f2pts"]
+        else:
+            f2pts = src_info["only_vis_f2pts"] if comp.only_vis else src_info["f2pts"]
 
-    return SourceCache(
-        src_enc_outs=tuple(enc_outs), src_res_outs=tuple(res_outs), uv_img=uv_img,
-        bg_img=bg, src_f2pts=f2pts, src_cam=details["cam"], src_shape=details["shape"])
+        return SourceCache(
+            src_enc_outs=tuple(enc_outs), src_res_outs=tuple(res_outs), uv_img=uv_img,
+            bg_img=bg, src_f2pts=f2pts, src_cam=details["cam"], src_shape=details["shape"])
 
 
 @torch.no_grad()
@@ -165,19 +177,20 @@ def prepare_target_smpls(
     Returns:
         (N, 85) numpy SMPLs ready for `synthesize_frames`.
     """
-    smpls = np.asarray(tgt_smpls, np.float32)
-    if cam_strategy == "smooth":
-        foot_y = infer_foot_y(model, smpls)
-        smpls = cam_utils.stabilize_smpls(smpls, foot_y)
+    with span("prepare.targets"):
+        smpls = np.asarray(tgt_smpls, np.float32)
+        if cam_strategy == "smooth":
+            foot_y = infer_foot_y(model, smpls)
+            smpls = cam_utils.stabilize_smpls(smpls, foot_y)
 
-    src_cam = np.broadcast_to(
-        cache.src_cam[primary_id:primary_id + 1].cpu().numpy().astype(np.float32),
-        (len(smpls), 3))
-    src_shape = cache.src_shape[primary_id:primary_id + 1].cpu().numpy().astype(np.float32)
-    first_cam = smpls[0:1, 0:3]
-    new_cam = cam_utils.cam_swap(src_cam, smpls[:, 0:3], first_cam, cam_strategy)
-    return np.concatenate(
-        [new_cam, smpls[:, 3:75], np.repeat(src_shape, len(smpls), axis=0)], axis=1)
+        src_cam = np.broadcast_to(
+            cache.src_cam[primary_id:primary_id + 1].cpu().numpy().astype(np.float32),
+            (len(smpls), 3))
+        src_shape = cache.src_shape[primary_id:primary_id + 1].cpu().numpy().astype(np.float32)
+        first_cam = smpls[0:1, 0:3]
+        new_cam = cam_utils.cam_swap(src_cam, smpls[:, 0:3], first_cam, cam_strategy)
+        return np.concatenate(
+            [new_cam, smpls[:, 3:75], np.repeat(src_shape, len(smpls), axis=0)], axis=1)
 
 
 @torch.no_grad()
@@ -293,10 +306,12 @@ def synthesize_frames(
         preds (T, S, S, 3) composited frames in [-1, 1];
         masks (T, S, S, 1) predicted attention masks (1 = background).
     """
-    tsf_inputs, Tst, _ = make_frame_inputs(
-        comp, cache, tgt_smpl, offsets, links_ids, sample_dtype=compute_dtype,
-        tst_stride=tst_stride)
-    return generate_frames(generator, cache, tsf_inputs, Tst, compute_dtype)
+    with span("synth.geometry"):
+        tsf_inputs, Tst, _ = make_frame_inputs(
+            comp, cache, tgt_smpl, offsets, links_ids, sample_dtype=compute_dtype,
+            tst_stride=tst_stride)
+    with span("synth.generator"):
+        return generate_frames(generator, cache, tsf_inputs, Tst, compute_dtype)
 
 
 @torch.no_grad()

@@ -29,8 +29,11 @@ read, in one sync, only when a caller asks for them.
 A wrapper runs its plain version only for a CPU tensor (or inside
 `dispatch.force_plain()`); for a CUDA tensor it launches the kernel or raises,
 on that tensor's device and its current stream (`dispatch.kernel_stream`),
-whichever device is current. Each wrapper counts its launches in its
-`launches` attribute.
+whichever device is current. Each wrapper counts its launches in the
+registry of `utils.logging.count`: `k1.launches` (`raster_flows`),
+`k3.launches` (`raster_fim`), `k4.launches` (`raster_flows_table`),
+`raster_binning.launches` (`prepare_raster`) and `table_binning.launches`
+(`prepare_table`).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import torch
 from ipercore_tpu_torch.ops import rasterizer as rz
 from ipercore_tpu_torch.ops.dispatch import kernel_stream, use_kernel
 from ipercore_tpu_torch.utils import cuda_build
+from ipercore_tpu_torch.utils.logging import count
 
 # must equal TILE, E_CAP, ITEM in csrc/raster_common.cuh
 TILE = 16  # pixels per tile side
@@ -245,14 +249,11 @@ def prepare_raster(face_verts: torch.Tensor, size: int) -> RasterPlan:
             zeroed.data_ptr(), seg.data_ptr(), cursor.data_ptr(), items.data_ptr(), ids.data_ptr(),
             wide_ids.data_ptr(), stream)
     cuda_build.check_launch(err, "raster binning")
-    prepare_raster.launches += 1
+    count("raster_binning.launches")
     n_counts = T * n_tiles
     return RasterPlan(geom, zeroed[:n_counts], seg, ids, wide_ids.view(T, F),
                       zeroed[n_counts:n_counts + T], items.view(T, n_tiles + 1),
                       zeroed[-len(STAT_KEYS):])
-
-
-prepare_raster.launches = 0
 
 
 def _zbuf(T: int, size: int, device) -> tuple[torch.Tensor, int]:
@@ -343,11 +344,8 @@ def launch_raster_flows(plan: RasterPlan, aux: torch.Tensor, T: int, F: int, siz
             *_plan_ptrs(plan), aux.data_ptr(), J * F * 6 if per_frame else 0, T, F, size, J,
             zbuf.data_ptr(), zb_frames, fim.data_ptr(), flows.data_ptr(), stream)
     cuda_build.check_launch(err, "raster_flows")
-    raster_flows.launches += 1
+    count("k1.launches")
     return fim, flows
-
-
-raster_flows.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -401,11 +399,8 @@ def launch_raster_fim(plan: RasterPlan, N: int, F: int, size: int) -> rz.RasterO
             *_plan_ptrs(plan), N, F, size, zbuf.data_ptr(), zb_frames, fim.data_ptr(),
             wim.data_ptr(), stream)
     cuda_build.check_launch(err, "raster_fim")
-    raster_fim.launches += 1
+    count("k3.launches")
     return rz.RasterOutput(fim=fim, wim=wim)
-
-
-raster_fim.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -646,13 +641,10 @@ def prepare_table(face_verts: torch.Tensor, size: int, k: int = 2048) -> TablePl
             cursor.data_ptr(), true_counts.data_ptr(), kept.data_ptr(), items.data_ptr(),
             list_ids.data_ptr(), ids.data_ptr(), stream)
     cuda_build.check_launch(err, "table binning")
-    prepare_table.launches += 1
+    count("table_binning.launches")
     bins = TableBins(ids, kept.view(T, n_tiles), true_counts.view(T, n_tiles), None)
     n_stats = len(TABLE_STAT_KEYS)
     return TablePlan(geom, bins, items.view(T, n_tiles + 1), zeroed[-n_stats - 2:-2])
-
-
-prepare_table.launches = 0
 
 
 def _table_pixel_centres(size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -745,7 +737,6 @@ def raster_flows_table_plain(face_verts: torch.Tensor, aux_pts: torch.Tensor, si
     return fim, torch.stack(flows, dim=3)
 
 
-
 def raster_flows_table(face_verts: torch.Tensor, aux_pts: torch.Tensor, size: int,
                        k: int = 2048, with_stats: bool = False):
     """Batched rasterize + flows over nearest-first k-capacity tile tables:
@@ -803,8 +794,5 @@ def launch_raster_flows_table(plan: TablePlan, aux: torch.Tensor, size: int,
             plan.items.data_ptr(), aux.data_ptr(), T, F, size, J, k, zbuf.data_ptr(), zb_frames,
             fim.data_ptr(), flows.data_ptr(), stream)
     cuda_build.check_launch(err, "raster_flows_table")
-    raster_flows_table.launches += 1
+    count("k4.launches")
     return fim, flows
-
-
-raster_flows_table.launches = 0

@@ -16,7 +16,7 @@ order, not `torch.nn.functional.grid_sample`, so it is independent of that
 library call. The wrapper runs it only for a CPU tensor (or inside
 `dispatch.force_plain()`); for a CUDA tensor it launches the kernel or raises,
 on that tensor's device (`dispatch.kernel_stream`).
-`grid_sample_nhwc.launches` counts launches.
+Its launches are counted as `k2.launches` (`utils.logging.count`).
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import torch
 
 from ipercore_tpu_torch.ops.dispatch import kernel_stream, use_kernel
 from ipercore_tpu_torch.utils import cuda_build
+from ipercore_tpu_torch.utils.logging import count
 
 
 def _lib() -> ctypes.CDLL:
@@ -141,8 +142,5 @@ def grid_sample_nhwc(imgs: torch.Tensor, grids: torch.Tensor,
             grids.data_ptr(), grid_ps, out.data_ptr(), out_ps,
             None if img4 is None else img4.data_ptr(), N, H, W, C, h, w, stream)
     cuda_build.check_launch(err, "grid_sample_nhwc")
-    grid_sample_nhwc.launches += 1
+    count("k2.launches")
     return out
-
-
-grid_sample_nhwc.launches = 0

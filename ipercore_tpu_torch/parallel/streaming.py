@@ -14,6 +14,11 @@ frames are copied into pinned host memory on a side stream that waits on an
 event recorded right after chunk i's kernels, and the host waits on that copy
 alone. Two pinned buffers alternate; a buffer is refilled only after the
 writes that read it are done.
+
+Spans (`utils.logging.span`): `stream.run` around a clip (attributes
+`frames`, `padded`), `stream.enqueue` around each chunk's launch (`chunk`),
+`stream.fetch` while the host waits for a chunk's frames, and inside it
+`stream.write_wait` while it waits for the writes that read the buffer.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 
 from ipercore_tpu_torch.models import imitator as imit
 from ipercore_tpu_torch.utils import video as vid
+from ipercore_tpu_torch.utils.logging import span
 
 
 class StreamingSynthesizer:
@@ -53,6 +59,11 @@ class StreamingSynthesizer:
                                           compute_dtype=self.compute_dtype)
         return preds
 
+    def _enqueue(self, fetch, smpls: torch.Tensor, ci: int):
+        c = self.chunk
+        with span("stream.enqueue", chunk=ci):
+            return fetch.enqueue(self._synthesize(smpls[ci * c:(ci + 1) * c]))
+
     def run(self, tgt_smpls: np.ndarray, out_dir: Optional[str] = None,
             name_fmt: str = "pred_{:08d}.png") -> list:
         """Synthesize all frames with one-chunk-deep device pipelining. The
@@ -74,13 +85,13 @@ class StreamingSynthesizer:
         fetch = _CudaFetch(self.device) if self.device.type == "cuda" else _HostFetch()
 
         results: list = [None] * n
-        with cf.ThreadPoolExecutor(max_workers=self.io_workers) as pool:
-            pending = fetch.enqueue(self._synthesize(smpls[:c]))
+        with span("stream.run", frames=n, padded=pad), \
+                cf.ThreadPoolExecutor(max_workers=self.io_workers) as pool:
+            pending = self._enqueue(fetch, smpls, 0)
             for ci in range(n_chunks):
                 # enqueue the next chunk before fetching this one: device compute
                 # overlaps the copy and the PNG writes below
-                nxt = (fetch.enqueue(self._synthesize(smpls[(ci + 1) * c:(ci + 2) * c]))
-                       if ci + 1 < n_chunks else None)
+                nxt = self._enqueue(fetch, smpls, ci + 1) if ci + 1 < n_chunks else None
                 host = fetch.fetch(pending)  # waits on this chunk only
                 writes = []
                 for j in range(min(c, n - ci * c)):
@@ -107,7 +118,8 @@ class _HostFetch:
         return preds
 
     def fetch(self, preds: torch.Tensor) -> np.ndarray:
-        return preds.numpy()
+        with span("stream.fetch"):
+            return preds.numpy()
 
     def release(self, writes: list) -> None:
         self.writes += writes
@@ -133,20 +145,22 @@ class _CudaFetch:
         return preds, done
 
     def fetch(self, pending: tuple) -> np.ndarray:
-        preds, done = pending  # `preds` stays referenced until its copy has ended
-        b = self.turn
-        for f in self.writes[b]:
-            f.result()
-        self.writes[b] = []
-        if self.buffers[b] is None or self.buffers[b].shape != preds.shape:
-            self.buffers[b] = torch.empty(preds.shape, dtype=preds.dtype, pin_memory=True)
-        with torch.cuda.stream(self.copy_stream):
-            self.copy_stream.wait_event(done)
-            self.buffers[b].copy_(preds, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(self.copy_stream)
-        copied.synchronize()
-        return self.buffers[b].numpy()
+        with span("stream.fetch"):
+            preds, done = pending  # `preds` stays referenced until its copy has ended
+            b = self.turn
+            with span("stream.write_wait"):
+                for f in self.writes[b]:
+                    f.result()
+            self.writes[b] = []
+            if self.buffers[b] is None or self.buffers[b].shape != preds.shape:
+                self.buffers[b] = torch.empty(preds.shape, dtype=preds.dtype, pin_memory=True)
+            with torch.cuda.stream(self.copy_stream):
+                self.copy_stream.wait_event(done)
+                self.buffers[b].copy_(preds, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(self.copy_stream)
+            copied.synchronize()
+            return self.buffers[b].numpy()
 
     def release(self, writes: list) -> None:
         self.writes[self.turn] = writes

@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from ipercore_tpu_torch.models import flow_composition as fc
 from ipercore_tpu_torch.models.imitator import reference_precision
 from ipercore_tpu_torch.models.networks import criterions as C
+from ipercore_tpu_torch.utils.logging import span
 
 NECK_IDS = 12  # cocoplus: joints >= 12 are neck / head
 
@@ -336,100 +337,113 @@ def _train_step(state, batch, comp, generator, discriminator, vgg, face, cfg, ns
                 reduce: Optional[Reduce] = None):
     """`train_step`'s body. `reduce`, when given, maps each network's
     gradients followed by its metrics (G: the g_* losses; D: d_total) before
-    the optimizer applies them (the data-parallel mean)."""
-    images, smpls, masks = batch["images"], batch["smpls"], batch["masks"]
-    bs, nt, S = images.shape[0], images.shape[1] - ns, comp.image_size
-    device = images.device
-    src_img, ref_img = images[:, :ns], images[:, ns:]
+    the optimizer applies them (the data-parallel mean).
 
-    # flow composition: frozen geometry, no gradient
-    with torch.no_grad():
-        comp_out = fc.forward(comp, src_img, ref_img, smpls[:, :ns], smpls[:, ns:],
-                              src_mask=masks[:, :ns], ref_mask=masks[:, ns:],
-                              links_ids=batch.get("links_ids"), offsets=batch.get("offsets", 0.0),
-                              temporal=cfg.temporal)
-    ref_j2d = comp_out["ref_info"]["j2d"]  # (bs*nt, 19, 2)
-    head_bbox = cal_head_bbox_by_kps(ref_j2d)
-    body_bbox = cal_body_bbox_by_kps(ref_j2d)
-    input_G_bg = comp_out["input_G_bg"]
+    Spans: `train.step` around the step, and inside it in order
+    `train.compose`, `train.g_forward` (G and its losses), `train.g_backward`
+    (G's gradients, and their `reduce`), `train.g_adam`, and with the GAN
+    `train.d_step` (D forward and backward) and `train.d_adam`."""
+    with span("train.step"):
+        images, smpls, masks = batch["images"], batch["smpls"], batch["masks"]
+        bs, nt, S = images.shape[0], images.shape[1] - ns, comp.image_size
+        device = images.device
+        src_img, ref_img = images[:, :ns], images[:, ns:]
 
-    # aug-bg supervision: the first source's mask pasted on a clean
-    # background joins BGNet's inputs, supervised against the clean image
-    aug_bg = batch.get("aug_bg") if cfg.aug_bg else None
-    if aug_bg is not None:
-        src_mask0 = masks[:, 0:1]
-        aug_in = torch.cat([aug_bg[:, None] * src_mask0, src_mask0], dim=-1)
-        input_G_bg = torch.cat([input_G_bg, aug_in], dim=1)
+        # flow composition: frozen geometry, no gradient
+        with span("train.compose"), torch.no_grad():
+            comp_out = fc.forward(comp, src_img, ref_img, smpls[:, :ns], smpls[:, ns:],
+                                  src_mask=masks[:, :ns], ref_mask=masks[:, ns:],
+                                  links_ids=batch.get("links_ids"), offsets=batch.get("offsets", 0.0),
+                                  temporal=cfg.temporal)
+        ref_j2d = comp_out["ref_info"]["j2d"]  # (bs*nt, 19, 2)
+        head_bbox = cal_head_bbox_by_kps(ref_j2d)
+        body_bbox = cal_body_bbox_by_kps(ref_j2d)
+        input_G_bg = comp_out["input_G_bg"]
 
-    real_bg = batch["bg"]
-    tsf_cond = comp_out["input_G_tsf"][..., 3:6].reshape(bs * nt, S, S, 3)
-    real_tsf = ref_img.reshape(bs * nt, S, S, 3)
-    g_inputs = (input_G_bg, comp_out["input_G_src"], comp_out["input_G_tsf"], comp_out["Tst"],
-                comp_out["Ttt"])
-    tx_g, tx_d = make_optimizers(cfg)
+        # aug-bg supervision: the first source's mask pasted on a clean
+        # background joins BGNet's inputs, supervised against the clean image
+        aug_bg = batch.get("aug_bg") if cfg.aug_bg else None
+        if aug_bg is not None:
+            src_mask0 = masks[:, 0:1]
+            aug_in = torch.cat([aug_bg[:, None] * src_mask0, src_mask0], dim=-1)
+            input_G_bg = torch.cat([input_G_bg, aug_in], dim=1)
 
-    def apply_G(params, *inputs):
-        with _precision(cfg, device):
-            outs = functional_call(generator, params, inputs, {"only_tsf": False})
-        return [o.float() if o is not None else None for o in outs]
+        real_bg = batch["bg"]
+        tsf_cond = comp_out["input_G_tsf"][..., 3:6].reshape(bs * nt, S, S, 3)
+        real_tsf = ref_img.reshape(bs * nt, S, S, 3)
+        g_inputs = (input_G_bg, comp_out["input_G_src"], comp_out["input_G_tsf"], comp_out["Tst"],
+                    comp_out["Ttt"])
+        tx_g, tx_d = make_optimizers(cfg)
 
-    def apply_D(params, x):
-        with _precision(cfg, device):
-            outs = functional_call(discriminator, params, (x, None, body_bbox, head_bbox))
-        return [o.float() for o in outs]
+        def apply_G(params, *inputs):
+            with _precision(cfg, device):
+                outs = functional_call(generator, params, inputs, {"only_tsf": False})
+            return [o.float() if o is not None else None for o in outs]
 
-    zero = torch.zeros((), device=device)
+        def apply_D(params, x):
+            with _precision(cfg, device):
+                outs = functional_call(discriminator, params, (x, None, body_bbox, head_bbox))
+            return [o.float() for o in outs]
 
-    # ------------------------------------------------------------------ G
-    params_G = {k: v.detach().requires_grad_() for k, v in state.params_G.items()}
-    if cfg.remat:
-        outs = checkpoint(apply_G, params_G, *g_inputs, use_reentrant=False)
-    else:
-        outs = apply_G(params_G, *g_inputs)
-    fake_tsf_imgs, _, loss_rec, loss_mask, fake_masks = _gen_losses(
-        outs, real_bg, src_img, masks, ns, S, cfg, aug_bg)
-    flat_tsf = fake_tsf_imgs.reshape(bs * nt, S, S, 3)
+        zero = torch.zeros((), device=device)
 
-    if cfg.use_gan:  # D with its old parameters, taking no gradient
-        d_outs = apply_D(state.params_D, torch.cat([flat_tsf, tsf_cond], dim=-1))
-        loss_adv = C.lsgan_loss(d_outs, 0.0) * cfg.lambda_d_prob
-    else:
-        loss_adv = zero
-    loss_tsf = C.perceptual_loss(vgg, flat_tsf, real_tsf) * cfg.lambda_tsf
-    if cfg.use_face:
-        loss_face = C.face_loss(face, flat_tsf, real_tsf, head_bbox, head_bbox,
-                                hw=cfg.face_hw) * cfg.lambda_face
-    else:
-        loss_face = zero
-    loss_smooth = C.tv_loss(fake_masks) * cfg.lambda_mask_smooth
-    total = loss_rec + loss_tsf + loss_face + loss_adv + loss_mask + loss_smooth
-    g_grads = torch.autograd.grad(total, list(params_G.values()))
-    metrics = {"g_rec": loss_rec, "g_tsf": loss_tsf, "g_face": loss_face, "g_adv": loss_adv,
-               "g_mask": loss_mask, "g_smooth": loss_smooth, "g_total": total}
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    if reduce is not None:
-        reduced = reduce(list(g_grads) + list(metrics.values()))
-        g_grads, metrics = reduced[:len(g_grads)], dict(zip(metrics, reduced[len(g_grads):]))
-    new_params_G, new_opt_G = tx_g.apply(dict(zip(params_G, g_grads)), state.opt_G, state.params_G)
-    fake_tsf = flat_tsf.detach()
-    del outs, fake_tsf_imgs, fake_masks, total
+        # ------------------------------------------------------------------ G
+        with span("train.g_forward"):
+            params_G = {k: v.detach().requires_grad_() for k, v in state.params_G.items()}
+            if cfg.remat:
+                outs = checkpoint(apply_G, params_G, *g_inputs, use_reentrant=False)
+            else:
+                outs = apply_G(params_G, *g_inputs)
+            fake_tsf_imgs, _, loss_rec, loss_mask, fake_masks = _gen_losses(
+                outs, real_bg, src_img, masks, ns, S, cfg, aug_bg)
+            flat_tsf = fake_tsf_imgs.reshape(bs * nt, S, S, 3)
 
-    # ------------------------------------------------------------------ D
-    if cfg.use_gan:
-        params_D = {k: v.detach().requires_grad_() for k, v in state.params_D.items()}
-        d_fake = apply_D(params_D, torch.cat([fake_tsf, tsf_cond], dim=-1))
-        d_real = apply_D(params_D, torch.cat([real_tsf, tsf_cond], dim=-1))
-        d_total = C.lsgan_loss(d_real, 1.0) + C.lsgan_loss(d_fake, -1.0)
-        d_grads = torch.autograd.grad(d_total, list(params_D.values()))
-        d_total = d_total.detach()
-        if reduce is not None:
-            *d_grads, d_total = reduce(list(d_grads) + [d_total])
-        new_params_D, new_opt_D = tx_d.apply(dict(zip(params_D, d_grads)), state.opt_D, state.params_D)
-    else:
-        d_total, new_params_D, new_opt_D = zero, state.params_D, state.opt_D
-    metrics["d_total"] = d_total
-    return LWGTrainState(params_G=new_params_G, params_D=new_params_D, opt_G=new_opt_G,
-                         opt_D=new_opt_D, step=state.step + 1), metrics
+            if cfg.use_gan:  # D with its old parameters, taking no gradient
+                d_outs = apply_D(state.params_D, torch.cat([flat_tsf, tsf_cond], dim=-1))
+                loss_adv = C.lsgan_loss(d_outs, 0.0) * cfg.lambda_d_prob
+            else:
+                loss_adv = zero
+            loss_tsf = C.perceptual_loss(vgg, flat_tsf, real_tsf) * cfg.lambda_tsf
+            if cfg.use_face:
+                loss_face = C.face_loss(face, flat_tsf, real_tsf, head_bbox, head_bbox,
+                                        hw=cfg.face_hw) * cfg.lambda_face
+            else:
+                loss_face = zero
+            loss_smooth = C.tv_loss(fake_masks) * cfg.lambda_mask_smooth
+            total = loss_rec + loss_tsf + loss_face + loss_adv + loss_mask + loss_smooth
+        with span("train.g_backward"):
+            g_grads = torch.autograd.grad(total, list(params_G.values()))
+            metrics = {"g_rec": loss_rec, "g_tsf": loss_tsf, "g_face": loss_face, "g_adv": loss_adv,
+                       "g_mask": loss_mask, "g_smooth": loss_smooth, "g_total": total}
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if reduce is not None:
+                reduced = reduce(list(g_grads) + list(metrics.values()))
+                g_grads, metrics = reduced[:len(g_grads)], dict(zip(metrics, reduced[len(g_grads):]))
+        with span("train.g_adam"):
+            new_params_G, new_opt_G = tx_g.apply(dict(zip(params_G, g_grads)), state.opt_G,
+                                                 state.params_G)
+        fake_tsf = flat_tsf.detach()
+        del outs, fake_tsf_imgs, fake_masks, total
+
+        # ------------------------------------------------------------------ D
+        if cfg.use_gan:
+            with span("train.d_step"):
+                params_D = {k: v.detach().requires_grad_() for k, v in state.params_D.items()}
+                d_fake = apply_D(params_D, torch.cat([fake_tsf, tsf_cond], dim=-1))
+                d_real = apply_D(params_D, torch.cat([real_tsf, tsf_cond], dim=-1))
+                d_total = C.lsgan_loss(d_real, 1.0) + C.lsgan_loss(d_fake, -1.0)
+                d_grads = torch.autograd.grad(d_total, list(params_D.values()))
+                d_total = d_total.detach()
+                if reduce is not None:
+                    *d_grads, d_total = reduce(list(d_grads) + [d_total])
+            with span("train.d_adam"):
+                new_params_D, new_opt_D = tx_d.apply(dict(zip(params_D, d_grads)), state.opt_D,
+                                                     state.params_D)
+        else:
+            d_total, new_params_D, new_opt_D = zero, state.params_D, state.opt_D
+        metrics["d_total"] = d_total
+        return LWGTrainState(params_G=new_params_G, params_D=new_params_D, opt_G=new_opt_G,
+                             opt_D=new_opt_D, step=state.step + 1), metrics
 
 
 def eval_step(state: LWGTrainState, batch: dict, comp: fc.FlowComposer, generator: torch.nn.Module,

@@ -186,17 +186,25 @@ def test_metrics_logger_matches_jax(tmp_path, monkeypatch, capsys):
     assert out[:2] == out[2:] and out[0] == "[metrics] step=0 g_total=3.142 d_total=0.5"
     assert (tmp_path / "t" / "log.jsonl").read_text() == (tmp_path / "j" / "log.jsonl").read_text()
     assert json.loads((tmp_path / "t" / "log.jsonl").read_text().splitlines()[1]) == {"t": 1234.5, **rows[1]}
-    timer = tlogging.StepTimer(window=3)
-    assert timer.tick() == 0.0 and timer.tick() > 0 and len(timer.times) == 2
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
     import torch
 
     with tlogging.profile_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
+        with tlogging.span("outer", chunk=2):
+            with tlogging.span("inner"):
+                torch.ones(8).sum()
     with open(tmp_path / "trace" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
+        trace = json.load(f)
+    spans = {e["name"]: e for e in trace["traceEvents"] if e.get("cat") == "span"}
+    assert set(spans) == {"outer", "inner"} and spans["outer"]["args"]["chunk"] == 2
+    assert spans["inner"]["args"]["parent"] == spans["outer"]["args"]["id"]
+    assert spans["outer"]["ts"] <= spans["inner"]["ts"] and spans["inner"]["dur"] <= spans["outer"]["dur"]
+    ops = [e for e in trace["traceEvents"] if e.get("name") == "aten::sum" and e.get("ph") == "X"]
+    assert ops and all(spans["inner"]["ts"] <= e["ts"] <= spans["inner"]["ts"] + spans["inner"]["dur"]
+                       for e in ops)
+    assert tlogging.take_spans() == []
     with tlogging.profile_trace(str(tmp_path / "off"), enabled=False):
         pass
     assert not (tmp_path / "off").exists()

@@ -19,6 +19,7 @@ from ipercore_tpu_torch.ops import dispatch
 from ipercore_tpu_torch.ops import rasterizer_cuda as trc
 from ipercore_tpu_torch.ops import sampling_cuda as tsc
 from ipercore_tpu_torch.utils import cuda_build
+from ipercore_tpu_torch.utils import logging as tlogging
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(ROOT, "ipercore_tpu_torch")
@@ -275,9 +276,9 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
         raise AssertionError(f"a CPU tensor reached the build of {name}")
 
     monkeypatch.setattr(cuda_build, "load_library", no_build)
-    wrappers = (trc.raster_flows, trc.raster_fim, trc.raster_flows_table, tsc.grid_sample_nhwc,
-                trc.prepare_raster, trc.prepare_table)
-    before = tuple(w.launches for w in wrappers)
+    names = ("k1.launches", "k3.launches", "k4.launches", "k2.launches", "raster_binning.launches",
+             "table_binning.launches")
+    before = tuple(tlogging.counts().get(k, 0) for k in names)
     fv = torch.rand(1, 6, 3, 3) * 2 - 1
     fv[..., 2] += 2
     trc.raster_flows(fv, torch.rand(2, 6, 3, 2), 16, with_stats=True)
@@ -285,7 +286,7 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     trc.raster_flows_table(fv, torch.rand(2, 6, 3, 2), 128)
     trc.prepare_table(fv, 128)
     tsc.grid_sample_nhwc(torch.rand(1, 4, 4, 3), torch.rand(1, 5, 5, 2) * 2 - 1)
-    after = tuple(w.launches for w in wrappers)
+    after = tuple(tlogging.counts().get(k, 0) for k in names)
     assert before == after == (0,) * 6 and all(isinstance(c, int) for c in after)
 
 
