@@ -7,7 +7,8 @@
 Builds the CUDA kernels of `ipercore_tpu_torch` from the sources in this
 checkout, holds each against its plain PyTorch version (and each device
 binning against its plain binning) on the GPU at the shapes the main path
-gives it, then drives the main path (full-width
+gives it (K5, SPADE's convolutions, against its plain version in float64,
+within twice the error of cuDNN's float32), then drives the main path (full-width
 AttLWB-SPADE with seeded random weights, synthetic body model, 512^2, two
 source views, 16 target frames in chunks of 8) through the entry points a
 user calls and checks its output. Then, each with the launch counts set to 0
@@ -97,6 +98,7 @@ REPLACES = {
     "grid_sample_nhwc": "ipercore_tpu/ops/sampling_pallas.py:92",
     "raster_fim": "ipercore_tpu/ops/rasterizer_pallas.py:249",
     "raster_flows_table": "ipercore_tpu/ops/rasterizer_pallas.py:779",
+    "spade_conv": "none: the JAX package left SPADE's convolutions to XLA",
 }
 TABLE_K = 2048  # faces per 8x128 tile of the table route, the JAX default
 # the personalization default discriminator (`patch_global`) at its published width
@@ -665,7 +667,112 @@ def kernel_checks(model, assets, device) -> dict:
         "library_device_us": sum(device_us_by_kernel(lib).values()),
         "shape": f"N={T} H=W={SIZE} C=3 -> {SIZE}x{SIZE}",
     }
+
+    results["spade_conv"] = spade_conv_checks(device)
     return results
+
+
+# SPADE's blocks on the main path, each on a chunk of CHUNK frames: (name, side, channels)
+SPADE_SHAPES = (("enc_fusion_0", SIZE // 2, 64), ("enc_fusion_1", SIZE // 4, 128),
+                ("enc_fusion_2", SIZE // 8, 256), ("res_fusion", SIZE // 8, 256))
+SPADE_NARROW = ((8, 8), (16, 16), (32, 32), (5, 3), (6, 12))  # (channels, condition channels)
+
+
+def spade_case(n: int, side_h: int, side_w: int, c: int, cond_c: int, seed: int, device) -> dict:
+    """K5 on one SPADE block (seeded weights and non-zero biases) against its
+    plain version in float64 and against the module's `nn.Conv2d` path
+    (cuDNN, float32, TF32 off) on the same inputs; the largest absolute
+    errors of both against float64."""
+    from ipercore_tpu_torch.models.networks.blocks import SPADE
+    from ipercore_tpu_torch.ops import spade_conv_cuda as k5
+
+    torch.manual_seed(seed)
+    spade = SPADE(norm_nc=c, cond_nc=cond_c).to(device)
+    with torch.no_grad():
+        for conv in (spade.Conv_0, spade.Conv_1, spade.Conv_2):
+            conv.bias.uniform_(-0.1, 0.1)
+    x = torch.randn((n, side_h, side_w, c), device=device)
+    cond = torch.randn((n, side_h, side_w, cond_c), device=device)
+    with torch.no_grad():
+        out = spade(x, cond)
+    with torch.enable_grad():
+        lib = spade(x, cond).detach()
+    (wp0, b0), (wp12, b12) = spade.packed_weights()
+    d = lambda t: t.double()
+    x64 = d(x)
+    mean64 = x64.mean(dim=(1, 2), keepdim=True)
+    rstd64 = torch.rsqrt(x64.var(dim=(1, 2), keepdim=True, unbiased=False) + 1e-5)
+    ref = k5.spade_modulate_plain(k5.spade_conv_relu_plain(d(cond), d(wp0), d(b0)), d(wp12), d(b12),
+                                  x64, mean64, rstd64)
+    err = float((out.double() - ref).abs().max())
+    err_lib = float((lib.double() - ref).abs().max())
+    check(bool(torch.isfinite(out).all()) and err <= 2 * err_lib,
+          f"spade_conv {n}x{side_h}x{side_w} c={c}: max abs error {err} against float64, "
+          f"more than twice cuDNN's {err_lib}")
+    return {"spade": spade, "x": x, "cond": cond, "max_abs_err": err, "library_max_abs_err": err_lib}
+
+
+def spade_conv_checks(device) -> dict:
+    """K5 at SPADE's main-path shapes, at a ragged one and at narrow and odd
+    widths: error against float64 within twice cuDNN's, then the two launches
+    of a block timed (`kernel_ms`) beside cuDNN's three `F.conv2d`
+    (`library_ms`), the FFMA bound of the block's operations, and the
+    packing of its weights that `SPADE` does on every call (`pack_ms`)."""
+    import torch.nn.functional as Fn
+
+    from ipercore_tpu_torch.models.networks import blocks as bl
+    from ipercore_tpu_torch.models.networks.blocks import instance_norm_stats
+    from ipercore_tpu_torch.ops import spade_conv_cuda as k5
+
+    ragged = spade_case(3, 37, 53, 96, 48, 7, device)  # a partial row tile and a partial column tile
+    # the smoke configuration's widths (`accuracy_cost.SMOKE_CFG`), and odd ones on K5's float path
+    narrow = {}
+    for i, (c, cond_c) in enumerate(SPADE_NARROW):
+        case = spade_case(2, 33, 29, c, cond_c, 20 + i, device)
+        narrow[f"c={c} cond_c={cond_c}"] = {k: case[k] for k in ("max_abs_err", "library_max_abs_err")}
+    shapes = {}
+    for i, (name, side, c) in enumerate(SPADE_SHAPES):
+        case = spade_case(CHUNK, side, side, c, c, 10 + i, device)
+        spade, x, cond = case["spade"], case["x"], case["cond"]
+        (wp0, b0), (wp12, b12) = spade.packed_weights()
+        mean, rstd = instance_norm_stats(x)
+        actv = k5.spade_conv_relu(cond, wp0, b0)
+        call = lambda: k5.spade_modulate(k5.spade_conv_relu(cond, wp0, b0), wp12, b12, x, mean, rstd)
+        plain = lambda: k5.spade_modulate_plain(k5.spade_conv_relu_plain(cond, wp0, b0), wp12, b12,
+                                                x, mean, rstd)
+        lib = lambda: (Fn.relu(bl.conv_nhwc(spade.Conv_0, cond)), bl.conv_nhwc(spade.Conv_1, actv),
+                       bl.conv_nhwc(spade.Conv_2, actv))
+        with torch.no_grad():
+            flops = 2.0 * x.shape[0] * side * side * 9 * (c * 128 + 128 * 2 * c)
+            kernel_ms = cuda_ms(call)
+            lib_us = device_us_by_kernel(lib)
+            shapes[name] = {
+                "shape": f"N={CHUNK} {side}x{side} c={c} nhidden=128",
+                "max_abs_err": case["max_abs_err"], "library_max_abs_err": case["library_max_abs_err"],
+                "kernel_ms": kernel_ms, "wrapper_ms": cuda_ms(lambda: spade(x, cond)),
+                "plain_ms": cuda_ms(plain, reps=3), "library_ms": cuda_ms(lib),
+                "bound_ms": flops / PEAK_F32_FLOPS * 1e3, "bound_by": "operations",
+                "gflop": flops / 1e9, "tflop_per_s": flops / kernel_ms / 1e9,
+                "device_us": device_us_by_kernel(call), "host_syncs": host_syncs(call),
+                "pack_ms": cuda_ms(spade.packed_weights),
+                "pack_device_us": sum(device_us_by_kernel(spade.packed_weights).values()),
+                "relu_launch_ms": cuda_ms(lambda: k5.spade_conv_relu(cond, wp0, b0)),
+                "modulate_launch_ms": cuda_ms(lambda: k5.spade_modulate(actv, wp12, b12, x, mean, rstd)),
+                "library_device_us": sum(lib_us.values()),
+                "library_kernels": sorted(lib_us, key=lib_us.get, reverse=True)[:4],
+            }
+        del case, spade, x, cond, actv
+    total = lambda key: sum(v[key] for v in shapes.values())
+    return {
+        "route": "cuda", "source": "ipercore_tpu_torch/csrc/spade_conv.cu",
+        "max_abs_err": max([ragged["max_abs_err"]] + [v["max_abs_err"] for v in shapes.values()]),
+        "ragged_max_abs_err": ragged["max_abs_err"],
+        "ragged_library_max_abs_err": ragged["library_max_abs_err"], "narrow": narrow,
+        "kernel_ms": total("kernel_ms"), "wrapper_ms": total("wrapper_ms"), "plain_ms": total("plain_ms"),
+        "library_ms": total("library_ms"), "bound_ms": total("bound_ms"), "bound_by": "operations",
+        "binning_ms": None, "host_syncs": total("host_syncs"), "shapes": shapes,
+        "shape": "; ".join(v["shape"] for v in shapes.values()),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -692,10 +799,11 @@ def tiles_touched(face_verts, size: int) -> int:
 
 def counters() -> dict:
     """Launch counters, by their names in the port's counter registry: the
-    four kernels, the device binning that K1 and K3 launch before their walk,
+    five kernels, the device binning that K1 and K3 launch before their walk,
     and K4's device binning."""
     return {"raster_flows_csr": "k1.launches", "grid_sample_nhwc": "k2.launches",
             "raster_fim": "k3.launches", "raster_flows_table": "k4.launches",
+            "spade_conv": "k5.launches",
             "raster_binning": "raster_binning.launches", "table_binning": "table_binning.launches"}
 
 
@@ -794,6 +902,9 @@ def main_path(device) -> tuple[dict, dict]:
         check(launches[k] >= N_FRAMES // CHUNK, f"{k} launched {launches[k]} times")
     check(launches["raster_flows_table"] == launches["table_binning"] == 0,
           "the CSR route launched the table kernel or its binning")
+    # K5: two launches in each of the generator's nine SPADE blocks a chunk
+    check(launches["spade_conv"] == 18 * (N_FRAMES // CHUNK),
+          f"spade_conv launched {launches['spade_conv']} times for {N_FRAMES // CHUNK} chunks")
     check(launches["raster_binning"] == launches["raster_flows_csr"] + launches["raster_fim"],
           f"the device binning ran {launches['raster_binning']} times for "
           f"{launches['raster_flows_csr'] + launches['raster_fim']} raster launches")

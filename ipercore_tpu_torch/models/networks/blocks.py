@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ipercore_tpu_torch.ops.sampling import grid_sample, resize_flow
+from ipercore_tpu_torch.ops.spade_conv_cuda import pack_conv3x3, spade_conv_relu, spade_modulate
 
 
 def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -57,12 +58,19 @@ def frozen_bn_nchw(bn: FrozenBatchNorm, x: torch.Tensor) -> torch.Tensor:
     return (x - c(bn.mean)) * c(bn.scale * torch.rsqrt(bn.var + bn.eps)) + c(bn.bias)
 
 
+def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and reciprocal standard deviation (biased variance) of NHWC `x`
+    over its spatial dims, each (N, 1, 1, C)."""
+    mean = x.mean(dim=(1, 2), keepdim=True)
+    var = x.var(dim=(1, 2), keepdim=True, unbiased=False)
+    return mean, torch.rsqrt(var + eps)
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Parameter-free instance norm over the spatial dims of NHWC (biased
     variance, as `InstanceNorm2d(affine=False)`)."""
-    mean = x.mean(dim=(1, 2), keepdim=True)
-    var = x.var(dim=(1, 2), keepdim=True, unbiased=False)
-    return (x - mean) * torch.rsqrt(var + eps)
+    mean, rstd = instance_norm_stats(x, eps)
+    return (x - mean) * rstd
 
 
 class ConvIN(nn.Module):
@@ -214,7 +222,13 @@ class ResAutoEncoder(nn.Module):
 
 class SPADE(nn.Module):
     """Spatially-adaptive denorm conditioned on the attention-fused feature
-    (instance norm, 3x3 convs, nhidden = 128)."""
+    (instance norm, 3x3 convs, nhidden = 128).
+
+    Where no autograd graph is recorded and both inputs are float32, the
+    three convolutions run on K5 (`ops/spade_conv_cuda`: the kernel on a CUDA
+    tensor, its plain version on a CPU one), with the modulation in its
+    epilogue; training and the autocast (bf16) path keep the `nn.Conv2d`
+    path."""
 
     def __init__(self, norm_nc: int, cond_nc: int, nhidden: int = 128):
         super().__init__()
@@ -222,7 +236,17 @@ class SPADE(nn.Module):
         self.Conv_1 = _conv(nhidden, norm_nc, 3)
         self.Conv_2 = _conv(nhidden, norm_nc, 3)
 
+    def packed_weights(self):
+        """((wp0, b0), (wp12, b12)): `Conv_0`, and `Conv_1` / `Conv_2` with
+        interleaved (gamma, beta) columns, packed by `pack_conv3x3`."""
+        return (pack_conv3x3((self.Conv_0.weight,), (self.Conv_0.bias,)),
+                pack_conv3x3((self.Conv_1.weight, self.Conv_2.weight), (self.Conv_1.bias, self.Conv_2.bias)))
+
     def forward(self, x, condmap):
+        if not torch.is_grad_enabled() and x.dtype == condmap.dtype == torch.float32:
+            (wp0, b0), (wp12, b12) = self.packed_weights()
+            mean, rstd = instance_norm_stats(x)
+            return spade_modulate(spade_conv_relu(condmap, wp0, b0), wp12, b12, x, mean, rstd)
         normalized = instance_norm(x)
         actv = F.relu(conv_nhwc(self.Conv_0, condmap))
         gamma = conv_nhwc(self.Conv_1, actv)

@@ -27,7 +27,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "--shared", "-Xcompiler", "-fPIC")
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
-SOURCES = ("raster_bin", "raster", "raster_table_bin", "raster_table", "grid_sample")
+SOURCES = ("raster_bin", "raster", "raster_table_bin", "raster_table", "grid_sample", "spade_conv")
 HOST_SOURCES = ("cclabel", "pngfilters")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 

@@ -10,6 +10,7 @@ card:
     cd <checkout> && python3 <repo>/scripts/torch_kernel_ab.py compose
     cd <checkout> && python3 <repo>/scripts/torch_kernel_ab.py k4
     cd <checkout> && python3 <repo>/scripts/torch_kernel_ab.py temporal
+    cd <checkout> && python3 <repo>/scripts/torch_kernel_ab.py generator
 
 Modes (main-path shapes of `chip_smoke.py`: 8 frames, 512^2, the synthetic
 body; one JSON line each):
@@ -23,7 +24,13 @@ body; one JSON line each):
   k4        K4 checked against its plain versions (tables and outputs, k = 2048
             and 256, and a crowded tile), then its kernel, binning and wrapper
             times and device microseconds per kernel;
-  temporal  temporal mode on 8 frames, timed five times, and its device time.
+  temporal  temporal mode on 8 frames, timed five times, and its device time;
+  generator one AttLWB-SPADE chunk by convolution: CUDA events around every
+            convolution module and every SPADE block inside the chunk (three
+            chunks, averaged), summed by role (SPADE, the attention's 1x1s, the
+            rest); then each distinct convolution (module type, input and
+            weight shapes) and SPADE block run alone under the profiler, with
+            the device microseconds and names of the kernels it launches.
 Needs a GPU; exits with code 2 when there is none.
 """
 from __future__ import annotations
@@ -178,7 +185,90 @@ def temporal() -> dict:
     return {"frames_per_s": fps, "device_ms": _total_us(cs, run, 1) / 1e3}
 
 
-MODES = {"k2": k2, "compose": compose, "k4": k4, "temporal": temporal}
+def _role(name: str) -> str:
+    if "SPADE" in name:
+        return "spade"
+    return "attention_1x1" if name.rsplit(".", 1)[-1] in ("fk", "fv", "fq") else "other"
+
+
+def generator() -> dict:
+    cs, dev, model, assets = _setup()
+    from ipercore_tpu_torch.models import flow_composition as fc
+    from ipercore_tpu_torch.models import imitator as imit
+    from ipercore_tpu_torch.models.networks import build_generator
+    from ipercore_tpu_torch.models.networks.blocks import SPADE
+    from ipercore_tpu_torch.utils.checkpoint import load_generator_params, seeded_flat_params
+
+    gen = build_generator("AttLWB-SPADE", cs.CFG, device=dev)
+    load_generator_params(gen, seeded_flat_params(cs.CFG, seed=0))
+    src_img, src_smpl = cs.source_inputs(dev)
+    comp = fc.make_composer(model, assets, image_size=cs.SIZE, out_dilate_ks=51)
+    cache = imit.setup_source(comp, gen, src_img, src_smpl)
+    smpls = imit.prepare_target_smpls(model, cache, cs.target_smpls(cs.CHUNK, 1), cam_strategy="smooth")
+    batch = torch.as_tensor(smpls, device=dev)
+    chunk = lambda: imit.synthesize_frames(comp, gen, cache, batch)
+    chunk()
+
+    kinds = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, SPADE)
+    mods = {n: m for n, m in gen.named_modules() if isinstance(m, kinds)}
+    events, inputs = {}, {}
+
+    def pre(name):
+        def hook(mod, args):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            events.setdefault(name, []).append([start, None])
+            inputs.setdefault(name, args)
+        return hook
+
+    def post(name):
+        def hook(mod, args, out):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            events[name][-1][1] = end
+        return hook
+
+    handles = [h for n, m in mods.items()
+               for h in (m.register_forward_pre_hook(pre(n)), m.register_forward_hook(post(n)))]
+    reps = 3
+    for _ in range(reps):
+        chunk()
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    ms = {n: sum(s.elapsed_time(e) for s, e in evs) / reps for n, evs in events.items()}
+
+    rows = {}
+    with torch.no_grad():
+        for n, args in inputs.items():
+            m = mods[n]
+            sig = (type(m).__name__, tuple(tuple(a.shape) for a in args),
+                   tuple(getattr(m, "weight", torch.empty(0)).shape), getattr(m, "stride", None))
+            row = rows.get(sig)
+            if row is None:
+                times = cs.kernel_times(lambda: m(*args), reps=3)
+                row = rows[sig] = {
+                    "module": type(m).__name__, "input": sig[1], "weight": sig[2], "role": _role(n),
+                    "modules": [], "ms_in_chunk": 0.0,
+                    "alone_device_us": sum(us for us, _ in times),
+                    "kernels": [[round(us, 1), k[:90]] for us, k in sorted(times, reverse=True)[:4]]}
+            row["modules"].append(n)
+            row["ms_in_chunk"] += ms[n]
+    del inputs
+    convs = [r for r in rows.values() if r["module"] != "SPADE"]
+    by_role = {}
+    for r in convs:
+        by_role[r["role"]] = by_role.get(r["role"], 0.0) + r["ms_in_chunk"]
+    return {"chunk": cs.CHUNK, "chunk_ms": cs.cuda_ms(chunk, reps=3, warmup=1),
+            "breakdown": cs.device_breakdown(chunk),
+            "conv_module_ms_by_role": by_role,
+            "spade_block_ms": {n: v for n, v in ms.items() if isinstance(mods[n], SPADE)},
+            "spade_blocks_ms": sum(v for n, v in ms.items() if isinstance(mods[n], SPADE)),
+            "spade_blocks": [r for r in rows.values() if r["module"] == "SPADE"],
+            "convolutions": sorted(convs, key=lambda r: -r["ms_in_chunk"])}
+
+
+MODES = {"k2": k2, "compose": compose, "k4": k4, "temporal": temporal, "generator": generator}
 
 
 def main() -> int:

@@ -18,6 +18,7 @@ import ipercore_tpu_torch
 from ipercore_tpu_torch.ops import dispatch
 from ipercore_tpu_torch.ops import rasterizer_cuda as trc
 from ipercore_tpu_torch.ops import sampling_cuda as tsc
+from ipercore_tpu_torch.ops import spade_conv_cuda as tk5
 from ipercore_tpu_torch.utils import cuda_build
 from ipercore_tpu_torch.utils import logging as tlogging
 
@@ -277,7 +278,7 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
 
     monkeypatch.setattr(cuda_build, "load_library", no_build)
     names = ("k1.launches", "k3.launches", "k4.launches", "k2.launches", "raster_binning.launches",
-             "table_binning.launches")
+             "table_binning.launches", "k5.launches")
     before = tuple(tlogging.counts().get(k, 0) for k in names)
     fv = torch.rand(1, 6, 3, 3) * 2 - 1
     fv[..., 2] += 2
@@ -286,8 +287,12 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     trc.raster_flows_table(fv, torch.rand(2, 6, 3, 2), 128)
     trc.prepare_table(fv, 128)
     tsc.grid_sample_nhwc(torch.rand(1, 4, 4, 3), torch.rand(1, 5, 5, 2) * 2 - 1)
+    wp, b = tk5.pack_conv3x3((torch.rand(4, 16, 3, 3), torch.rand(4, 16, 3, 3)), (torch.rand(4), torch.rand(4)))
+    tk5.spade_modulate(tk5.spade_conv_relu(torch.rand(1, 5, 6, 16), *tk5.pack_conv3x3(
+        (torch.rand(16, 16, 3, 3),), (torch.rand(16),))), wp, b, torch.rand(1, 5, 6, 4),
+        torch.rand(1, 1, 1, 4), torch.rand(1, 1, 1, 4))
     after = tuple(tlogging.counts().get(k, 0) for k in names)
-    assert before == after == (0,) * 6 and all(isinstance(c, int) for c in after)
+    assert before == after == (0,) * 7 and all(isinstance(c, int) for c in after)
 
 
 def test_dispatch_sends_cuda_tensors_to_the_kernel():
