@@ -48,19 +48,29 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def peak_bytes(device) -> int:
-    """Peak bytes allocated on the device since the process began."""
+def as_devices(devices) -> list:
+    """A device or a list of devices as a list of distinct devices."""
+    return list(dict.fromkeys(devices if isinstance(devices, (list, tuple)) else [devices]))
+
+
+def peak_bytes(devices) -> int:
+    """Peak bytes allocated since the process began on the fullest of the
+    devices (a device or a list of them)."""
     import torch
 
-    return int(torch.cuda.max_memory_allocated(device)) if device.type == "cuda" else 0
+    return max((int(torch.cuda.max_memory_allocated(d)) for d in as_devices(devices) if d.type == "cuda"),
+               default=0)
 
 
-def device_info(device, peak: int) -> dict:
+def device_info(devices, peak: int) -> dict:
+    """The result's `device`: the kind of the first device and how many
+    distinct devices the run used (a device or a list of them)."""
     import torch
 
-    if device.type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": peak}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": 1,
+    devices = as_devices(devices)
+    if devices[0].type != "cuda":
+        return {"platform": "cpu", "kind": "cpu", "count": len(devices), "memory_peak_bytes": peak}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(devices[0]), "count": len(devices),
             "memory_peak_bytes": peak}
 
 

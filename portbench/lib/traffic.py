@@ -7,7 +7,10 @@ subject's source views: images in [-1, 1] and SMPLs. Clip lengths come in
 antithetic pairs (L, lo + hi - L) with L uniform over [lo, hi], so every
 seed gives each pair of requests the same number of frames, and the same
 padding, in another split: the seed changes the order and the motion, not
-the amount of work. A clip is
+the amount of work. A mix that names `pairs` goes further: every seed draws
+the same set of that many pairs, spread evenly over [lo, hi], in a seeded
+order, cycle after cycle, so that a window of one cycle holds the same sizes
+whatever the seed. A clip is
 a smooth motion: each joint swings on a sine of its own amplitude, frequency
 and phase, and the body turns about its vertical axis.
 """
@@ -31,6 +34,15 @@ def clip_lengths(params: dict, seed: int, n: int, chunk: int) -> list:
     lo, hi = int(params["min"]), int(params["max"])
     rng = rng_of(seed, 1)
     out = []
+    if "pairs" in params:
+        fixed = fixed_pairs(params, chunk)
+        while len(out) < n:
+            for j in rng.permutation(len(fixed)):
+                pair = list(fixed[j])
+                if rng.random() < 0.5:
+                    pair.reverse()
+                out += pair
+        return out[:n]
     while len(out) < n:
         a = int(rng.integers(lo, hi + 1))
         if a % chunk == 0:
@@ -40,6 +52,26 @@ def clip_lengths(params: dict, seed: int, n: int, chunk: int) -> list:
             pair.reverse()
         out += pair
     return out[:n]
+
+
+def fixed_pairs(params: dict, chunk: int) -> list:
+    """The `pairs` antithetic pairs (L, lo + hi - L) of a mix that fixes its
+    set of sizes: L at the middles of equal steps over [lo, (lo + hi) / 2],
+    moved up by one where it is a multiple of `chunk`."""
+    lo, hi, k = int(params["min"]), int(params["max"]), int(params["pairs"])
+    out = []
+    for j in range(k):
+        a = lo + int((2 * j + 1) * (hi - lo) / (4 * k))
+        a += a % chunk == 0
+        out.append((a, lo + hi - a))
+    return out
+
+
+def lengths_drawn(params: dict, chunk: int) -> list:
+    """Every clip length the mix can draw, in order."""
+    if "pairs" in params:
+        return sorted(n for pair in fixed_pairs(params, chunk) for n in pair)
+    return [n for n in range(int(params["min"]), int(params["max"]) + 1) if n % chunk]
 
 
 def motion(rng: np.random.Generator, n: int, params: dict) -> np.ndarray:

@@ -177,9 +177,22 @@ def prepare_target_smpls(comp: Composer, src: dict, tgt: np.ndarray) -> np.ndarr
 
 def synthesize(comp: Composer, gen, src: dict, smpls: torch.Tensor) -> torch.Tensor:
     """Frames (T, S, S, 3) in [-1, 1] of prepared target SMPLs (T, 85)."""
-    T, S = smpls.shape[0], comp.size
+    return synthesize_faces(comp, gen, src, g.face_verts_of(comp.body, smpls))
+
+
+def synthesize_faces(comp: Composer, gen, src: dict, fv: torch.Tensor,
+                     block: int | None = None) -> torch.Tensor:
+    """Frames (T, S, S, 3) of projected per-face vertices (T, F, 3, 3), the
+    raster, flows and generator run `block` frames at a time (all at once by
+    default): everything after the skinning is frame by frame, so the
+    blocks change no result beyond the generator's rounding across batch
+    sizes."""
+    if block is not None and fv.shape[0] > block:
+        return torch.cat([synthesize_faces(comp, gen, src, fv[i:i + block])
+                          for i in range(0, fv.shape[0], block)])
+    T, S = fv.shape[0], comp.size
     ns = src["f2pts"].shape[0]
-    fim, wim = g.rasterize_batch(g.face_verts_of(comp.body, smpls), S)
+    fim, wim = g.rasterize_batch(fv, S)
     cond = g.encode_fim(fim, comp.map_fn)
     uv_flow = g.bc_flow(comp.f2uvs.expand((T,) + tuple(comp.f2uvs.shape)), fim, wim)
     tsf_in = torch.cat([grid_sample(src["uv_img"].expand(T, S, S, 3), uv_flow), cond], dim=-1)

@@ -8,7 +8,7 @@ import torch
 from portbench.lib import trace as tr
 from portbench.lib import yardstick as ys
 from portbench.lib.runner import quantile
-from portbench.lib.traffic import Requests, clip_lengths
+from portbench.lib.traffic import Requests, clip_lengths, lengths_drawn
 
 
 def test_p95_is_over_all_samples_not_over_medians_of_chunks():
@@ -102,6 +102,23 @@ def test_clip_lengths_keep_the_work_of_each_pair():
         assert (pairs.sum(1) == 360).all() and all(60 <= x <= 300 for x in lengths)
         assert all(((-pairs) % 8).sum(1) == 8)  # one chunk of padding per pair
     assert clip_lengths({"min": 60, "max": 300}, 1, 10, 8) != clip_lengths({"min": 60, "max": 300}, 2, 10, 8)
+
+
+def test_a_fixed_set_of_pairs_gives_every_seed_the_same_sizes_in_another_order():
+    params = {"min": 60, "max": 300, "pairs": 21}
+    cycles = {}
+    for seed in (0, 7, 2 ** 31 + 11):
+        lengths = clip_lengths(params, seed, 84, 4)
+        pairs = np.asarray(lengths).reshape(-1, 2)
+        assert (pairs.sum(1) == 360).all() and all(60 <= x <= 300 for x in lengths)
+        assert all(((-pairs) % 4).sum(1) == 4)  # one card's worth of padding per pair
+        first, second = sorted(lengths[:42]), sorted(lengths[42:])
+        assert first == second == lengths_drawn(params, 4)
+        cycles[seed] = lengths[:42]
+    assert len({tuple(v) for v in cycles.values()}) == 3
+    assert max(lengths_drawn(params, 4)) == 298 and min(lengths_drawn(params, 4)) == 62
+    # a mix without the key draws any length that is no multiple of the chunk
+    assert lengths_drawn({"min": 6, "max": 10}, 4) == [6, 7, 9, 10]
 
 
 def test_requests_are_a_function_of_the_seed():

@@ -7,6 +7,7 @@ pytestmark = pytest.mark.card
 
 
 @pytest.mark.parametrize("name", ["imitate.attlwb_spade_512", "subjects.attlwb_spade_512",
+                                  "imitate_sharded.attlwb_spade_512.x4",
                                   "personalize.attlwb_spade_512"])
 def test_the_tf32_control_fails_a_limit(card, tiny, name):
     from portbench.lib import manifest
