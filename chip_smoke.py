@@ -2327,7 +2327,7 @@ def preprocess_phase(device) -> dict:
 
     # --- Body-25 on the clip at 368² -----------------------------------------
     x368 = resize_image(torch.as_tensor(frames, device=device), POSE_SIZE, POSE_SIZE)
-    forward = lambda: runner._forward(x368)
+    forward = lambda: runner.heads(x368)
     ms = cuda_ms(forward, reps=2, warmup=1)
     n_chunks = -(-CLIP_FRAMES // 32)
     torch.cuda.reset_peak_memory_stats()
@@ -2357,9 +2357,9 @@ def preprocess_phase(device) -> dict:
 
     # --- the networks on the card against the CPU, on 2 frames ---------------
     two = x368[:2]
-    paf_k, hm_k = runner._forward(two)
+    paf_k, hm_k = runner.heads(two)
     cpu_runner = OpenPoseRunner(params=pose_flat, device="cpu")
-    paf_c, hm_c = cpu_runner._forward(two.cpu())
+    paf_c, hm_c = cpu_runner.heads(two.cpu())
     checks = {"openpose_pafs": agreement(paf_k, paf_c, "Body-25 PAFs"),
               "openpose_heatmaps": agreement(hm_k, hm_c, "Body-25 heatmaps")}
     dec_k = decode_single_person(hm_k)

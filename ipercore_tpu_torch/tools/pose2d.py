@@ -13,6 +13,16 @@ Two decode paths:
     refinement, on the device: the fast path when one person is guaranteed;
   * `OpenPoseRunner.run_tracked` — heatmap NMS + greedy PAF grouping +
     largest-person pick + 1-euro filter on the host (`tools/pose2d_decode.py`).
+    It is `decode_tracked(*heads(images))`: the network with the flip on the
+    device, then the host decode.
+
+Spans (`utils/logging.span`, recorded while `torch.profiler` records):
+`pose2d.run` (`frames`, `batches`) around `run_tracked`; `pose2d.heads`
+(`frames`, `padded`) a batch, holding `pose2d.stem`, `pose2d.paf_stages`,
+`pose2d.heatmap_stages` (`OpenPoseBody25.forward`) and `pose2d.flip_merge`;
+`pose2d.fetch`, the argmax decode and the heads coming to the host; and
+`pose2d.decode` (`frames`, `peaks` kept over the frames and joints, `people`
+grouped over the frames), the host decode of the clip.
 """
 from __future__ import annotations
 
@@ -27,11 +37,18 @@ from ipercore_tpu_torch.data.datasets import resize_linear
 from ipercore_tpu_torch.models.networks.criterions import ChannelPReLU
 from ipercore_tpu_torch.utils.checkpoint import (META_PREFIX, WEIGHTS_DIR, load_flat_npz,
                                                  load_generator_params, seeded_flat_params)
+from ipercore_tpu_torch.utils.logging import span
 
 N_BODY25_JOINTS = 25
 N_BODY25_PAFS = 52
 # seeded weights when no weight file is given (the JAX package inits from PRNGKey(0))
 OPENPOSE_SEED = 4
+# frames a chunk of `OpenPoseRunner.heads` (the network sees twice as many, with the flip)
+BATCH = 32
+# a clip's tail chunk runs at a multiple of this many frames: on an H100 (float32, TF32 off)
+# cuDNN ran chunks of 11-31 frames that are no multiple of 4 at 2.6-6.5x a full chunk's time
+# a frame, the multiples of 4 within 1.26x and chunks of 1-10 frames faster than a full chunk
+CHUNK_MULTIPLE = 4
 
 # Body-25 left<->right joint swap (horizontal-flip test-time augmentation):
 # 2-4 R arm <-> 5-7 L arm, 9-11 R leg <-> 12-14 L leg, 15/16 eyes, 17/18
@@ -57,6 +74,16 @@ def _body25_paf_flip_tables():
         perm[cx], perm[cy] = mcx, mcy
         sign[cx] = -1.0
     return perm, sign
+
+
+def chunk_frames(n: int, batch_size: int = BATCH) -> list:
+    """The frames each chunk of `OpenPoseRunner.heads` runs through the
+    network for a clip of n frames: chunks of `batch_size`, and the tail
+    chunk of a clip longer than a chunk rounded up to a multiple of
+    `CHUNK_MULTIPLE` (at most the chunk's size)."""
+    bs = min(batch_size, n)
+    sizes = [min(bs, n - i) for i in range(0, n, bs)]
+    return [min(bs, -(-k // CHUNK_MULTIPLE) * CHUNK_MULTIPLE) for k in sizes]
 
 
 def _prelu(slopes: ChannelPReLU, x: torch.Tensor) -> torch.Tensor:
@@ -153,13 +180,16 @@ class OpenPoseBody25(nn.Module):
         """`return_stages=True` also returns every stage's output (4 PAF + 2
         heatmap tensors), as for deep supervision during training."""
         nhwc = lambda t: t.permute(0, 2, 3, 1)
-        feat = self.model0(x.permute(0, 3, 1, 2))
-        pafs = [self.block02(feat)]
-        for block in (self.block12, self.block22, self.block32):
-            pafs.append(block(torch.cat([feat, pafs[-1]], dim=1)))
+        with span("pose2d.stem"):
+            feat = self.model0(x.permute(0, 3, 1, 2))
+        with span("pose2d.paf_stages"):
+            pafs = [self.block02(feat)]
+            for block in (self.block12, self.block22, self.block32):
+                pafs.append(block(torch.cat([feat, pafs[-1]], dim=1)))
         paf = pafs[-1]
-        hms = [self.block01(torch.cat([feat, paf], dim=1))]
-        hms.append(self.block11(torch.cat([feat, paf, hms[0]], dim=1)))
+        with span("pose2d.heatmap_stages"):
+            hms = [self.block01(torch.cat([feat, paf], dim=1))]
+            hms.append(self.block11(torch.cat([feat, paf, hms[0]], dim=1)))
         if return_stages:
             return nhwc(paf), nhwc(hms[-1]), [nhwc(p) for p in pafs], [nhwc(h) for h in hms]
         return nhwc(paf), nhwc(hms[-1])
@@ -251,56 +281,79 @@ class OpenPoseRunner:
         # channels swapped, mirrored limbs' PAFs with negated x-components)
         n = x.shape[0]
         paf, hm = self.net(torch.cat([x, x.flip(2)]))
-        hm_f = hm[n:].flip(2).index_select(3, self._flip_joints)
-        paf_f = paf[n:].flip(2).index_select(3, self._perm) * self._sign
-        return 0.5 * (paf[:n] + paf_f), 0.5 * (hm[:n] + hm_f)
+        with span("pose2d.flip_merge"):
+            hm_f = hm[n:].flip(2).index_select(3, self._flip_joints)
+            paf_f = paf[n:].flip(2).index_select(3, self._perm) * self._sign
+            return 0.5 * (paf[:n] + paf_f), 0.5 * (hm[:n] + hm_f)
 
-    def _forward(self, images, batch_size: int = 32):
-        """Net forward in chunks of `batch_size` frames: (pafs, heatmaps) as
-        NHWC tensors on the device. `images` is (N, H, W, 3) in [-1, 1], a
-        numpy array or a tensor. The tail chunk runs at its own size (the JAX
-        package pads it to one compiled shape)."""
+    def heads(self, images, batch_size: int = BATCH):
+        """The network with the flip in chunks of `batch_size` frames:
+        (pafs, heatmaps) as NHWC tensors on the device. `images` is
+        (N, H, W, 3) in [-1, 1], a numpy array or a tensor. A chunk runs at
+        the size `chunk_frames` gives, padded with its last frame, whose
+        outputs are dropped (the JAX package pads the tail chunk to one
+        compiled shape)."""
         n = len(images)
         bs = min(batch_size, n)
         pafs, hms = [], []
         with torch.inference_mode():
-            for i in range(0, n, bs):
-                x = torch.as_tensor(images[i:i + bs], dtype=torch.float32, device=self.device)
-                paf, hm = self._apply(x * 0.5)
-                pafs.append(paf)
-                hms.append(hm)
+            for i, size in zip(range(0, n, bs), chunk_frames(n, batch_size)):
+                real = min(bs, n - i)
+                with span("pose2d.heads", frames=real, padded=size - real):
+                    x = torch.as_tensor(images[i:i + bs], dtype=torch.float32, device=self.device)
+                    if size > real:
+                        x = torch.cat([x, x[-1:].expand(size - real, *x.shape[1:])])
+                    paf, hm = self._apply(x * 0.5)
+                pafs.append(paf[:real])
+                hms.append(hm[:real])
         return torch.cat(pafs), torch.cat(hms)
 
     def run(self, images):
         """images: (N, H, W, 3) in [-1, 1]. Returns numpy kps (N, 25, 2) NDC,
         scores (N, 25), valid (N, 25)."""
-        _, hm = self._forward(images)
+        _, hm = self.heads(images)
         return _numpy(*decode_single_person(hm))
 
     def run_tracked(self, images, smooth: bool = True):
         """The path for frames that may hold several people: NMS + PAF grouping
         per frame on the host, the largest person, an optional 1-euro filter;
         the argmax decode where grouping finds nobody. Same contract as `run`."""
-        from ipercore_tpu_torch.tools.pose2d_decode import (OneEuroFilter, decode_multi_person,
+        n = len(images)
+        with span("pose2d.run", frames=n, batches=-(-n // min(BATCH, n))):
+            return self.decode_tracked(*self.heads(images), smooth)
+
+    def decode_tracked(self, paf: torch.Tensor, hm: torch.Tensor, smooth: bool = True):
+        """The decode of `run_tracked` on the heads that `heads` gave: the
+        argmax decode on the device, then per frame on the host NMS, PAF
+        grouping and the largest person, and the 1-euro filter over the
+        frames in order."""
+        from ipercore_tpu_torch.tools.pose2d_decode import (OneEuroFilter, extract_peaks, group_people,
                                                             pick_largest_person)
 
-        paf, hm = self._forward(images)
-        kps_a, scores_a, _ = _numpy(*decode_single_person(hm))
-        paf_n, hm_n = _numpy(paf, hm)
+        with span("pose2d.fetch"):
+            kps_a, scores_a, _ = _numpy(*decode_single_person(hm))
+            paf_n, hm_n = _numpy(paf, hm)
         h, w = hm_n.shape[1:3]
         out_kps = np.array(kps_a)
         out_scores = np.array(scores_a)
         filt = OneEuroFilter() if smooth else None
-        for i in range(len(hm_n)):
-            best = pick_largest_person(decode_multi_person(hm_n[i], paf_n[i]))
-            if best is not None:
-                px = best["kps"]  # (25, 2) pixel coords, NaN missing
-                ndc = np.stack([(2 * px[:, 0] + 1 - w) / w, (2 * px[:, 1] + 1 - h) / h], axis=1)
-                take = np.isfinite(ndc[:, 0])
-                out_kps[i][take] = ndc[take]
-                out_scores[i][take] = best["scores"][take]
-            if filt is not None:
-                out_kps[i] = filt(out_kps[i])
+        with span("pose2d.decode", frames=len(hm_n)) as s:
+            peaks = people = 0
+            for i in range(len(hm_n)):
+                found = [extract_peaks(hm_n[i][..., j]) for j in range(N_BODY25_JOINTS)]
+                grouped = group_people(found, paf_n[i])
+                peaks += sum(len(p) for p in found)
+                people += len(grouped)
+                best = pick_largest_person(grouped)
+                if best is not None:
+                    px = best["kps"]  # (25, 2) pixel coords, NaN missing
+                    ndc = np.stack([(2 * px[:, 0] + 1 - w) / w, (2 * px[:, 1] + 1 - h) / h], axis=1)
+                    take = np.isfinite(ndc[:, 0])
+                    out_kps[i][take] = ndc[take]
+                    out_scores[i][take] = best["scores"][take]
+                if filt is not None:
+                    out_kps[i] = filt(out_kps[i])
+            s.set(peaks=peaks, people=people)
         valid = out_scores > 0.1
         return out_kps.astype(np.float32), out_scores, valid
 

@@ -19,6 +19,12 @@ them into its Chrome trace beside the kernels.
     with span("stream.enqueue", chunk=3):
         ...
 
+An attribute known only at the end is added with the span's `set`:
+
+    with span("pose2d.decode", frames=n) as s:
+        ...
+        s.set(peaks=peaks)
+
 Counters. `count(name, n)` adds to one registry of integers, always on;
 `counts()` reads it and `reset_counts(names)` sets entries back to 0.
 """
@@ -84,6 +90,9 @@ class _NoSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs):
+        """Nothing to record."""
+
 
 _NO_SPAN = _NoSpan()
 _spans: collections.deque = collections.deque(maxlen=MAX_SPANS)
@@ -116,6 +125,10 @@ class _OpenSpan:
         _spans.append(Span(self.name, self.start_ns, end, self.id, self.parent, self.request,
                            _open.tid, self.attrs))
         return False
+
+    def set(self, **attrs):
+        """Add attributes known only once the work is done."""
+        self.attrs.update(attrs)
 
 
 def span(name: str, **attrs):

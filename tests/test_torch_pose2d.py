@@ -45,10 +45,12 @@ def _flat32(path):
 
 
 def _forward_once_on(runner, clip):
-    """Run `runner._forward` on `clip` once and hand the same result to every
-    later call on `clip` (other inputs, such as the jittered crops, still run
-    the network): the decode paths below all start from the clip's forward."""
-    real, memo = runner._forward, {}
+    """Run the runner's chunked forward (the JAX runner's `_forward`, the
+    port's `heads`) on `clip` once and hand the same result to every later
+    call on `clip` (other inputs, such as the jittered crops, still run the
+    network): the decode paths below all start from the clip's forward."""
+    name = "heads" if isinstance(runner, TP.OpenPoseRunner) else "_forward"
+    real, memo = getattr(runner, name), {}
 
     def forward(images, batch_size=32):
         if images is not clip or batch_size != 32:
@@ -57,7 +59,7 @@ def _forward_once_on(runner, clip):
             memo["out"] = real(images, batch_size)
         return memo["out"]
 
-    runner._forward = forward
+    setattr(runner, name, forward)
 
 
 @pytest.fixture(scope="module")
@@ -116,7 +118,7 @@ def test_tta_forward_of_a_clip_with_a_tail_chunk_matches_jax(body25):
     """33 frames: a chunk of 32 and a tail of 1 (JAX pads it to 32)."""
     jr, tr, clip = body25
     jpaf, jhm = jr._forward(clip)
-    tpaf, thm = tr._forward(clip)
+    tpaf, thm = tr.heads(clip)
     assert tpaf.shape == (CLIP, SIZE // 8, SIZE // 8, 52) and thm.shape == (CLIP, SIZE // 8, SIZE // 8, 26)
     _close(tpaf, jpaf)
     _close(thm, jhm)
